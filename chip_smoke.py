@@ -1,0 +1,465 @@
+"""Drive the PyTorch/CUDA port of the keyframe-to-labelled-map path on one GPU.
+
+Usage (from the repository root, on a machine with an NVIDIA GPU):
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (exit code 1, no result line):
+
+1. device: require CUDA, print the card's name and power limit, build the
+   kernels from ``rovinasemanticsegmentation_tpu_torch/csrc`` with nvcc;
+2. kernel A (patches) against its plain PyTorch version on the card:
+   bit-exact at VGA / stride 2 on piecewise-smooth depth with 2% holes, and
+   on a 240x320 frame at strides 1 and 5;
+3. kernel B (forest descent + leaf-histogram sum) against its plain version
+   on phase 2's VGA features with the trained fixture forest: equal leaf ids
+   and equal posteriors;
+4. serving: the port's ``Segmenter`` at full width (patch 77 -> 11, stride
+   2, 366 features, 8 + 9 classes, dense CRF off) behind its HTTP services
+   takes 10 VGA keyframes and 2 local maps of 30000 points; all three query
+   services are called, every label is checked to be in range, and both
+   kernels' launch counts must have risen during this phase;
+5. reference: one VGA keyframe and one 30000-point map through the same
+   pipelines on the CPU (plain versions) and on the card must agree.
+
+The last lines are the card's name and power limit, one JSON object of
+per-kernel results, and ``{"ok": true, "device": {...}}``. Inputs and
+weights are made from fixed seeds; nothing here uses JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+import urllib.request
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FIXTURE = os.path.join(ROOT, "resources", "bench_forest.dat")
+H, W, STRIDE = 480, 640, 2
+MAP_EVERY = 5  # keyframes per local map
+MAP_POINTS = 30000
+N_KEYFRAMES = 10
+DRIFT = np.array([0.1, 0.04, 0.0])  # per-keyframe camera motion (passes the gate)
+
+CONFIG = {
+    "root_dir": "",
+    "color_codings": [
+        {
+            "name": "material",
+            "coding": [
+                *({"name": f"m{i}", "color": [30 * i, 0, 0], "label": i}
+                  for i in range(7)),
+                {"name": "Unknown", "color": [50, 50, 50], "label": 7},
+                {"name": "Void", "color": [0, 0, 0], "label": -1},
+            ],
+        },
+        {
+            "name": "object",
+            "coding": [
+                *({"name": f"o{i}", "color": [0, 30 * i, 0], "label": i}
+                  for i in range(8)),
+                {"name": "Unknown", "color": [50, 50, 50], "label": 8},
+                {"name": "Void", "color": [0, 0, 0], "label": -1},
+            ],
+        },
+    ],
+    "use_dense_crf": False,
+    "dcrf_xyz_kernel": 0.5,
+    "dcrf_rgb_kernel": 4.0,
+    "dcrf_kernel_weight": 10.0,
+    "dcrf_iterations": 10,
+    "rf_prediction_stride": STRIDE,
+    "depth_min": 0.5,
+    "depth_max": 15.0,
+    "keyframe_skip_rotation": 0.1,
+    "keyframe_skip_translation": 0.07,
+    "patch_size": 77,
+    "patch_size_reduce": 11,
+    "feature_color_patch": True,
+    "feature_depth": True,
+    "feature_height": True,
+    "feature_normal": True,
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def make_depth(rng, h, w):
+    """Piecewise-smooth indoor-style depth in mm with 2% sensor holes."""
+    ys, xs = np.mgrid[0:h, 0:w]
+    depth = (
+        3000.0
+        + 1500.0 * np.sin(xs / w * np.pi * rng.uniform(0.5, 2.0))
+        + 1000.0 * (ys / h) * rng.uniform(0.5, 3.0)
+    )
+    for _ in range(6):  # furniture-like fronto-parallel boxes
+        y0, x0 = rng.integers(0, h - h // 6), rng.integers(0, w - w // 5)
+        bh, bw = rng.integers(h // 8, h // 3), rng.integers(w // 8, w // 3)
+        depth[y0 : y0 + bh, x0 : x0 + bw] = rng.uniform(700, 2500)
+    depth += rng.normal(0, 15, (h, w))
+    depth[rng.random((h, w)) < 0.02] = 0
+    return np.clip(depth, 0, 15500).astype(np.uint16)
+
+
+def make_frames(rng, n, h=H, w=W):
+    return [
+        (rng.integers(0, 256, (h, w, 3), dtype=np.uint8), make_depth(rng, h, w))
+        for _ in range(n)
+    ]
+
+
+def make_cloud(rng, frames, first):
+    """Backprojected surface points of ``MAP_EVERY`` keyframes, world frame."""
+    fx = fy = 525.0
+    cx, cy = W / 2, H / 2
+    per_frame = MAP_POINTS // MAP_EVERY
+    pts, cols = [], []
+    for f in range(first, first + MAP_EVERY):
+        d = frames[f][1].astype(np.float32) / 1000.0
+        ys = rng.integers(0, H, per_frame)
+        xs = rng.integers(0, W, per_frame)
+        z = d[ys, xs]
+        z = np.where(z > 0, z, 2.0)
+        pts.append(
+            np.stack([(xs - cx) / fx * z, (ys - cy) / fy * z, z], axis=1)
+            + DRIFT * f
+        )
+        cols.append(frames[f][0][ys, xs].astype(np.float32) / 255.0)
+    return (
+        np.concatenate(pts).astype(np.float32),
+        np.concatenate(cols).astype(np.float32),
+    )
+
+
+def pose_of(f):
+    p = np.eye(4, dtype=np.float32)
+    p[:3, 3] = DRIFT * f
+    return p
+
+
+def gpu_name_and_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0]
+
+
+def time_cuda(fn, reps, warmup=2) -> float:
+    """Mean ms per call on the card, CUDA events around ``reps`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def http_json(url, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.load(r)
+
+
+def run(card: str) -> dict:
+    import torch
+
+    from rovinasemanticsegmentation_tpu.utils.calibration import Calibration
+    from rovinasemanticsegmentation_tpu.utils.config import Config
+    from rovinasemanticsegmentation_tpu_torch.csrc.build import load_kernels
+    from rovinasemanticsegmentation_tpu_torch.device import resolve_device
+    from rovinasemanticsegmentation_tpu_torch.features.extractor import (
+        FeatureConfig,
+        extract_features,
+        patch_inputs,
+    )
+    from rovinasemanticsegmentation_tpu_torch.fusion.projector import (
+        MultiProjector,
+    )
+    from rovinasemanticsegmentation_tpu_torch.models.forest import (
+        forest_from_numpy,
+        load_forest,
+    )
+    from rovinasemanticsegmentation_tpu_torch.ops import forest_cuda
+    from rovinasemanticsegmentation_tpu_torch.ops import patches_cuda
+    from rovinasemanticsegmentation_tpu_torch.ops.patches import (
+        extract_patches_plain,
+    )
+    from rovinasemanticsegmentation_tpu_torch.pipelines.local_map import (
+        LocalMapPipeline,
+        MapNodeFrames,
+    )
+    from rovinasemanticsegmentation_tpu_torch.pipelines.single_frame import (
+        SingleFramePipeline,
+    )
+    from rovinasemanticsegmentation_tpu_torch.serve.segmenter import (
+        LocalMapData,
+        MapNode,
+        Segmenter,
+    )
+    from rovinasemanticsegmentation_tpu_torch.serve.services import (
+        SegmentationServiceServer,
+    )
+
+    # ---- phase 1: device and build
+    dev = resolve_device("cuda")
+    t0 = time.perf_counter()
+    load_kernels()
+    build_s = time.perf_counter() - t0
+    print(f"phase 1: kernels built and loaded in {build_s:.3f} s ({card})")
+
+    rng = np.random.default_rng(0)
+    cfg = FeatureConfig()
+    calib = Calibration(
+        intrinsic=np.array([[525.0, 0, W / 2], [0, 525.0, H / 2], [0, 0, 1]]),
+        rotation=np.eye(3),
+        translation=np.zeros(3),
+    )
+    frames = make_frames(rng, N_KEYFRAMES)
+
+    def frame_tensors(rgb, depth):
+        return (torch.from_numpy(rgb).to(dev),
+                torch.from_numpy(depth.astype(np.int32)).to(dev))
+
+    # ---- phase 2: kernel A vs plain
+    results = {}
+    rgb_t, depth_t = frame_tensors(*frames[0])
+    padded, dgrid = patch_inputs(rgb_t, depth_t, cfg, STRIDE)
+    got = patches_cuda.extract_patches(padded, dgrid, 77, 11, STRIDE)
+    want = extract_patches_plain(padded, dgrid, 77, 11, STRIDE)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "kernel A differs from its plain version "
+          "at VGA stride 2")
+    err_a = int((got.int() - want.int()).abs().max())
+    ms_a = time_cuda(
+        lambda: patches_cuda.extract_patches(padded, dgrid, 77, 11, STRIDE), 50
+    )
+    plain_ms_a = time_cuda(
+        lambda: extract_patches_plain(padded, dgrid, 77, 11, STRIDE), 5
+    )
+    print(f"phase 2: kernel A == plain at VGA stride 2 "
+          f"({tuple(got.shape)} uint8); {ms_a:.4f} ms vs plain "
+          f"{plain_ms_a:.4f} ms ({card})")
+    small = make_frames(np.random.default_rng(1), 1, 240, 320)[0]
+    for s in (1, 5):
+        srgb, sdepth = frame_tensors(*small)
+        sp, sd = patch_inputs(srgb, sdepth, cfg, s)
+        a = patches_cuda.extract_patches(sp, sd, 77, 11, s)
+        b = extract_patches_plain(sp, sd, 77, 11, s)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"kernel A differs at 240x320 stride {s}")
+        print(f"phase 2: kernel A == plain at 240x320 stride {s}")
+    results["patches"] = dict(max_abs_err=err_a, ms=ms_a, plain_ms=plain_ms_a)
+
+    # ---- phase 3: kernel B vs plain, fixture forest on the VGA features
+    forest_np = load_forest(FIXTURE, class_counts=[8, 9])
+    forest = forest_from_numpy(forest_np, dev)
+    kinv = torch.from_numpy(calib.intrinsic_inverse).to(dev)
+    rot = torch.from_numpy(calib.rotation).to(dev)
+    trans = torch.from_numpy(calib.translation).to(dev)
+    feats, mask = extract_features(rgb_t, depth_t, kinv, rot, trans, cfg, STRIDE)
+    check(tuple(feats.shape) == ((H // 2) * (W // 2), 366),
+          f"feature shape {tuple(feats.shape)}")
+    check(bool(torch.isfinite(feats).all()), "non-finite features")
+    leaves, post = forest_cuda.forest_predict(feats, forest)
+    want_leaves, want_post = forest_cuda.forest_predict_plain(feats, forest)
+    torch.cuda.synchronize()
+    check(torch.equal(leaves, want_leaves), "kernel B leaf ids differ")
+    check(torch.equal(post, want_post), "kernel B posteriors differ")
+    err_b = float((post - want_post).abs().max())
+    ms_b = time_cuda(lambda: forest_cuda.forest_predict(feats, forest), 50)
+    plain_ms_b = time_cuda(
+        lambda: forest_cuda.forest_predict_plain(feats, forest), 5
+    )
+    print(f"phase 3: kernel B == plain on {tuple(feats.shape)} features, "
+          f"{forest.num_trees} trees; "
+          f"{ms_b:.4f} ms vs plain {plain_ms_b:.4f} ms ({card})")
+    results["forest_descent"] = dict(
+        max_abs_err=err_b, ms=ms_b, plain_ms=plain_ms_b
+    )
+
+    # ---- phase 4: serving through the HTTP services
+    topics = ["/camera_front/rgb/image", "/camera_front/depth/image"]
+    maps = []
+    map_rng = np.random.default_rng(2)
+    for k in range(N_KEYFRAMES // MAP_EVERY):
+        maps.append(make_cloud(map_rng, frames, k * MAP_EVERY))
+
+    def serve_session(seg):
+        seg.initialize_projector(["camera_front"], [calib], (H, W))
+        seg.stop()  # drive the workers' steps inline with drain()
+        for f, (rgb, depth) in enumerate(frames):
+            seg.push_color("camera_front", f + 1, rgb)
+            seg.push_depth("camera_front", f + 1, depth)
+            check(seg.on_new_node(MapNode(f + 1, pose_of(f), [f + 1])),
+                  f"keyframe {f + 1} was gated out")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seg.drain(timeout=600)
+        torch.cuda.synchronize()
+        frame_s = time.perf_counter() - t0
+        for k, (pts, cols) in enumerate(maps):
+            nodes = [
+                MapNode(f + 1, pose_of(f), [f + 1])
+                for f in range(k * MAP_EVERY, (k + 1) * MAP_EVERY)
+            ]
+            seg.on_new_local_map(LocalMapData(k, nodes, pts, cols))
+        t0 = time.perf_counter()
+        seg.drain(timeout=600)
+        torch.cuda.synchronize()
+        map_s = time.perf_counter() - t0
+        return frame_s, map_s
+
+    # A first session warms the allocator and the kernels' first launches.
+    serve_session(Segmenter(Config(data=CONFIG), topics, "cuda",
+                            forest=forest_np))
+    seg = Segmenter(Config(data=CONFIG), topics, "cuda", forest=forest_np)
+    server = SegmentationServiceServer(seg)
+    server.start()
+    try:
+        patches_cuda.launches.reset()
+        forest_cuda.launches.reset()
+        frame_s, map_s = serve_session(seg)
+        launches = {
+            "patches": patches_cuda.launches.value,
+            "forest_descent": forest_cuda.launches.value,
+        }
+        base = server.address + "/semantic_segmentation"
+        ids = http_json(base + "/local_map_ids")["local_map_ids"]
+        check(ids == [0, 1], f"stored map ids {ids}")
+        info = http_json(base + "/information")
+        check(info["class_counts"] == [8, 9], f"information {info}")
+        for map_id in ids:
+            reply = http_json(
+                base + "/get_local_map_segmentation",
+                {"local_map_id": map_id,
+                 "segmentation_layers": ["material", "object"]},
+            )
+            labels = np.asarray(reply["point_labels"])
+            check(labels.shape == (2 * MAP_POINTS,),
+                  f"map {map_id}: {labels.shape} labels")
+            check(bool(((labels[:MAP_POINTS] >= 0)
+                        & (labels[:MAP_POINTS] < 8)).all()),
+                  f"map {map_id}: material labels out of range")
+            check(bool(((labels[MAP_POINTS:] >= 0)
+                        & (labels[MAP_POINTS:] < 9)).all()),
+                  f"map {map_id}: object labels out of range")
+            known = (labels[:MAP_POINTS] != 7).mean()
+            print(f"phase 4: map {map_id}: {labels.size} labels in range, "
+                  f"{known:.1%} of points with a known material")
+    finally:
+        server.stop()
+        seg.stop()
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched while serving")
+        results[name]["launches"] = n
+    print(f"phase 4: {1000 * frame_s / N_KEYFRAMES:.3f} ms per keyframe "
+          f"({N_KEYFRAMES} VGA keyframes) ({card})")
+    print(f"phase 4: {1000 * map_s / len(maps):.3f} ms per map "
+          f"({MAP_POINTS} points, {MAP_EVERY} keyframes) ({card})")
+    print(f"phase 4: launches while serving: {launches}")
+
+    # ---- phase 5: the card against the CPU (plain versions) on one frame
+    rgb, depth = frames[0]
+    projector = MultiProjector.from_calibrations([calib], H, W, min_distance=0.5)
+    outs = {}
+    for name in ("cpu", "cuda"):
+        fp = SingleFramePipeline(cfg, forest_np, STRIDE, name, fill_value=0.0)
+        res = fp.run(rgb, depth, calib)
+        mp = LocalMapPipeline(projector, [8, 9], [7, 8], name)
+        node = MapNodeFrames(pose=pose_of(0), posteriors=[res.posteriors])
+        pts, cols = maps[0]
+        outs[name] = (
+            [p.cpu().numpy() for p in res.posteriors],
+            mp.run(pts, cols, [node]),
+        )
+    for li, (p_cpu, p_gpu) in enumerate(zip(outs["cpu"][0], outs["cuda"][0])):
+        check(bool(np.isfinite(p_gpu).all()), f"layer {li}: non-finite posterior")
+        close = np.isclose(p_gpu, p_cpu, rtol=1e-5, atol=1e-4).all(axis=-1)
+        check(close.mean() >= 0.999,
+              f"layer {li}: posteriors agree on {close.mean():.4%} of pixels")
+    for li, (l_cpu, l_gpu) in enumerate(zip(outs["cpu"][1], outs["cuda"][1])):
+        agree = (l_cpu == l_gpu).mean()
+        check(agree >= 0.999, f"layer {li}: map labels agree on {agree:.4%}")
+        print(f"phase 5: layer {li}: card vs CPU map labels agree on "
+              f"{agree:.4%} of {l_cpu.size} points")
+
+    return {
+        "kernels": [
+            {
+                "name": "patches",
+                "route": "cuda",
+                "source": "rovinasemanticsegmentation_tpu_torch/csrc/patches.cu",
+                "replaces": "rovinasemanticsegmentation_tpu/ops/patches_pallas.py:50",
+                **results["patches"],
+            },
+            {
+                "name": "forest_descent",
+                "route": "cuda",
+                "source": "rovinasemanticsegmentation_tpu_torch/csrc/"
+                          "forest_descent.cu",
+                "replaces": "rovinasemanticsegmentation_tpu/ops/forest_pallas.py:140",
+                **results["forest_descent"],
+            },
+        ],
+    }
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: FAILED: torch is not importable: {e}",
+              file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: FAILED: torch.cuda.is_available() is False; this "
+              "script measures the port on an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    try:
+        card = gpu_name_and_power()
+        print(f"phase 1: {card}")
+        out = run(card)
+    except Exception as e:  # report any phase's failure, then exit nonzero
+        import traceback
+
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED: {type(e).__name__}: {e}", file=sys.stderr)
+        return 1
+    print(card)
+    print(json.dumps({"kernels": out["kernels"]}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
