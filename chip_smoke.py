@@ -11,16 +11,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
 2. kernel A (patches) against its plain PyTorch version on the card:
    bit-exact at VGA / stride 2 on piecewise-smooth depth with 2% holes, and
    on a 240x320 frame at strides 1 and 5;
+2b. kernel D' (separable patches on planar channels) on the same inputs:
+   bit-exact with kernel A, ``extract_patches_plain`` and its own plain
+   version ``extract_patches_separable_plain``;
 3. kernel B (forest descent + leaf-histogram sum) against its plain version
    on phase 2's VGA features with the trained fixture forest: equal leaf ids
    and equal posteriors;
+3b. kernel C' (descent over a staged feature tile) on the same features
+   after the usage permutation, at hot = 128 and 366: leaf ids equal to B's
+   and to the plain descent's, and the posteriors summed from them equal to
+   B's;
 4. serving: the port's ``Segmenter`` at full width (patch 77 -> 11, stride
    2, 366 features, 8 + 9 classes, dense CRF off) behind its HTTP services
    takes 10 VGA keyframes and 2 local maps of 30000 points; all three query
    services are called, every label is checked to be in range, and both
    kernels' launch counts must have risen during this phase;
 5. reference: one VGA keyframe and one 30000-point map through the same
-   pipelines on the CPU (plain versions) and on the card must agree.
+   pipelines on the CPU (plain versions) and on the card must agree;
+6. the kernel-experiment entry points (``scripts/exp_descent.py`` on random
+   and on real VGA features, ``scripts/exp_patches.py`` at VGA) run in bench
+   mode: each must report parity, and the launch counts of C' and D' must
+   have risen during this phase.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel results, and ``{"ok": true, "device": {...}}``. Inputs and
@@ -31,7 +42,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 import urllib.request
@@ -149,15 +159,6 @@ def pose_of(f):
     return p
 
 
-def gpu_name_and_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
 def time_cuda(fn, reps, warmup=2) -> float:
     """Mean ms per call on the card, CUDA events around ``reps`` calls."""
     import torch
@@ -198,13 +199,20 @@ def run(card: str) -> dict:
         MultiProjector,
     )
     from rovinasemanticsegmentation_tpu_torch.models.forest import (
+        find_leaves_plain,
         forest_from_numpy,
         load_forest,
+        permute_forest_features,
+        sum_leaf_histograms_plain,
+        usage_permutation,
     )
     from rovinasemanticsegmentation_tpu_torch.ops import forest_cuda
+    from rovinasemanticsegmentation_tpu_torch.ops import forest_staged_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import patches_cuda
+    from rovinasemanticsegmentation_tpu_torch.ops import patches_planar_cuda
     from rovinasemanticsegmentation_tpu_torch.ops.patches import (
         extract_patches_plain,
+        extract_patches_separable_plain,
     )
     from rovinasemanticsegmentation_tpu_torch.pipelines.local_map import (
         LocalMapPipeline,
@@ -218,9 +226,20 @@ def run(card: str) -> dict:
         MapNode,
         Segmenter,
     )
+    from rovinasemanticsegmentation_tpu_torch.scripts import (
+        exp_descent,
+        exp_patches,
+    )
     from rovinasemanticsegmentation_tpu_torch.serve.services import (
         SegmentationServiceServer,
     )
+
+    counters = (patches_cuda.launches, forest_cuda.launches,
+                forest_staged_cuda.launches, patches_planar_cuda.launches)
+
+    def reset_counts():
+        for counter in counters:
+            counter.reset()
 
     # ---- phase 1: device and build
     dev = resolve_device("cuda")
@@ -261,16 +280,43 @@ def run(card: str) -> dict:
     print(f"phase 2: kernel A == plain at VGA stride 2 "
           f"({tuple(got.shape)} uint8); {ms_a:.4f} ms vs plain "
           f"{plain_ms_a:.4f} ms ({card})")
+    got_d = patches_planar_cuda.extract_patches_planar(
+        padded, dgrid, 77, 11, STRIDE
+    )
+    want_d = extract_patches_separable_plain(padded, dgrid, 77, 11, STRIDE)
+    torch.cuda.synchronize()
+    check(torch.equal(got_d, got), "kernel D' differs from kernel A at VGA "
+          "stride 2")
+    check(torch.equal(want_d, want), "the separable plain version differs "
+          "from extract_patches_plain at VGA stride 2")
+    err_d = int((got_d.int() - want_d.int()).abs().max())
+    ms_d = time_cuda(
+        lambda: patches_planar_cuda.extract_patches_planar(
+            padded, dgrid, 77, 11, STRIDE), 50
+    )
+    plain_ms_d = time_cuda(
+        lambda: extract_patches_separable_plain(padded, dgrid, 77, 11, STRIDE),
+        5,
+    )
+    print(f"phase 2b: kernel D' == kernel A == both plain versions at VGA "
+          f"stride 2; {ms_d:.4f} ms vs separable plain {plain_ms_d:.4f} ms "
+          f"({card})")
     small = make_frames(np.random.default_rng(1), 1, 240, 320)[0]
     for s in (1, 5):
         srgb, sdepth = frame_tensors(*small)
         sp, sd = patch_inputs(srgb, sdepth, cfg, s)
         a = patches_cuda.extract_patches(sp, sd, 77, 11, s)
         b = extract_patches_plain(sp, sd, 77, 11, s)
+        d = patches_planar_cuda.extract_patches_planar(sp, sd, 77, 11, s)
         torch.cuda.synchronize()
         check(torch.equal(a, b), f"kernel A differs at 240x320 stride {s}")
         print(f"phase 2: kernel A == plain at 240x320 stride {s}")
+        check(torch.equal(d, a), f"kernel D' differs at 240x320 stride {s}")
+        print(f"phase 2b: kernel D' == kernel A at 240x320 stride {s}")
     results["patches"] = dict(max_abs_err=err_a, ms=ms_a, plain_ms=plain_ms_a)
+    results["patches_planar"] = dict(
+        max_abs_err=err_d, ms=ms_d, plain_ms=plain_ms_d
+    )
 
     # ---- phase 3: kernel B vs plain, fixture forest on the VGA features
     forest_np = load_forest(FIXTURE, class_counts=[8, 9])
@@ -297,6 +343,45 @@ def run(card: str) -> dict:
           f"{ms_b:.4f} ms vs plain {plain_ms_b:.4f} ms ({card})")
     results["forest_descent"] = dict(
         max_abs_err=err_b, ms=ms_b, plain_ms=plain_ms_b
+    )
+
+    # ---- phase 3b: kernel C' on the usage-permuted features
+    perm, remap = usage_permutation(forest, feats.shape[1])
+    forest_p = permute_forest_features(forest, remap)
+    feats_p = feats[:, torch.from_numpy(perm).to(dev)].contiguous()
+
+    def plain_c():
+        return find_leaves_plain(
+            feats_p, forest_p.records, forest_p.max_depth, forest_p.feat_bits
+        )
+
+    want_c = plain_c()
+    check(torch.equal(want_c, want_leaves), "the plain descent on permuted "
+          "features differs from the unpermuted one")
+    ms_c = {}
+    for hot in (128, 366):
+        got_c = forest_staged_cuda.find_leaves_staged(feats_p, forest_p, hot)
+        torch.cuda.synchronize()
+        check(torch.equal(got_c, leaves),
+              f"kernel C' (hot {hot}) leaf ids differ from kernel B's")
+        check(torch.equal(got_c, want_c),
+              f"kernel C' (hot {hot}) leaf ids differ from the plain descent")
+        check(torch.equal(sum_leaf_histograms_plain(forest.leaf_hist, got_c),
+                          post),
+              f"posteriors from kernel C' (hot {hot}) leaves differ from B's")
+        err_c = int((got_c - want_c).abs().max())
+        ms_c[hot] = time_cuda(
+            lambda hot=hot: forest_staged_cuda.find_leaves_staged(
+                feats_p, forest_p, hot), 50
+        )
+        print(f"phase 3b: kernel C' (hot {hot}, "
+              f"{forest_staged_cuda.TILE_POINTS} points per block) == B == "
+              f"plain; {ms_c[hot]:.4f} ms ({card})")
+    plain_ms_c = time_cuda(plain_c, 5)
+    print(f"phase 3b: plain descent on permuted features {plain_ms_c:.4f} ms "
+          f"({card})")
+    results["forest_descent_staged"] = dict(
+        max_abs_err=err_c, ms=ms_c[366], plain_ms=plain_ms_c
     )
 
     # ---- phase 4: serving through the HTTP services
@@ -338,8 +423,7 @@ def run(card: str) -> dict:
     server = SegmentationServiceServer(seg)
     server.start()
     try:
-        patches_cuda.launches.reset()
-        forest_cuda.launches.reset()
+        reset_counts()
         frame_s, map_s = serve_session(seg)
         launches = {
             "patches": patches_cuda.launches.value,
@@ -405,6 +489,25 @@ def run(card: str) -> dict:
         print(f"phase 5: layer {li}: card vs CPU map labels agree on "
               f"{agree:.4%} of {l_cpu.size} points")
 
+    # ---- phase 6: the kernel-experiment entry points, in bench mode
+    reset_counts()
+    runs = [
+        exp_descent.main(["bench", "--features", kind, "--reps", "20"])
+        for kind in ("random", "real")
+    ]
+    runs.append(exp_patches.main(["bench", "--reps", "20"]))
+    launches = {
+        "forest_descent_staged": forest_staged_cuda.launches.value,
+        "patches_planar": patches_planar_cuda.launches.value,
+    }
+    for res in runs:
+        check(res["parity"], f"{res['script']} ({res.get('features', '')}) "
+              "reports no parity")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched by the entry points")
+        results[name]["launches"] = n
+    print(f"phase 6: entry points report parity; launches: {launches}")
+
     return {
         "kernels": [
             {
@@ -421,6 +524,22 @@ def run(card: str) -> dict:
                           "forest_descent.cu",
                 "replaces": "rovinasemanticsegmentation_tpu/ops/forest_pallas.py:140",
                 **results["forest_descent"],
+            },
+            {
+                "name": "forest_descent_staged",
+                "route": "cuda",
+                "source": "rovinasemanticsegmentation_tpu_torch/csrc/"
+                          "forest_descent_staged.cu",
+                "replaces": "scripts/exp_descent.py:64",
+                **results["forest_descent_staged"],
+            },
+            {
+                "name": "patches_planar",
+                "route": "cuda",
+                "source": "rovinasemanticsegmentation_tpu_torch/csrc/"
+                          "patches_planar.cu",
+                "replaces": "scripts/exp_patches.py:49",
+                **results["patches_planar"],
             },
         ],
     }
@@ -439,7 +558,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     try:
-        card = gpu_name_and_power()
+        from rovinasemanticsegmentation_tpu_torch.scripts import (
+            card_description,
+        )
+
+        card = card_description()
         print(f"phase 1: {card}")
         out = run(card)
     except Exception as e:  # report any phase's failure, then exit nonzero

@@ -1,10 +1,12 @@
 """Build the CUDA kernels with nvcc at first use and load them with ctypes.
 
 The kernels have a plain C interface (raw pointers, sizes and a stream), so
-they compile in seconds without PyTorch's headers. The shared library lands
-in ``csrc/_build/`` under a name keyed by a hash of the sources and the
-flags; a file lock keeps parallel processes from building it twice. A failed
-build raises with nvcc's stderr: nothing falls back to the plain versions.
+they compile in seconds without PyTorch's headers. Each source compiles in
+its own nvcc process, all started together, and the objects are linked into
+one shared library in ``csrc/_build/`` under a name keyed by a hash of the
+sources and the flags; a file lock keeps parallel processes from building it
+twice. A failed build raises with nvcc's stderr: nothing falls back to the
+plain versions.
 """
 
 from __future__ import annotations
@@ -20,13 +22,20 @@ from typing import List, Optional
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
-SOURCES = ("patches.cu", "forest_descent.cu")
+SOURCES = (
+    "patches.cu", "forest_descent.cu", "forest_descent_staged.cu",
+    "patches_planar.cu",
+)
 # No --use_fast_math: the patch kernel's floorf(77 / (2 d)) must be IEEE
 # division to stay bit-exact with the plain version.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+
+# Dynamic shared memory one block can use on sm_90 (after opting in above
+# 48 KB); the wrappers refuse a tile that needs more.
+MAX_SHARED_BYTES = 232448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +50,14 @@ _SIGNATURES = {
     # leaves, posterior, stream
     "rovina_forest_descent": [_P, _I64, _I, _P, _I, _I, _P, _I, _I, _I,
                               _P, _P, _P],
+    # features, P, D, hot, records, T, N, max_depth, feat_bits, tile_points,
+    # leaves, stream
+    "rovina_forest_descent_staged": [_P, _I64, _I, _I, _P, _I, _I, _I, _I,
+                                     _I, _P, _P],
+    # planar, hp, wp, depth, gh, gw, t0, t1, w0, w1, patch, reduce, stride,
+    # group, out, stream
+    "rovina_patches_planar": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -71,16 +88,36 @@ def _library_path(sources: List[str]) -> str:
     return os.path.join(BUILD_DIR, f"librovina_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds: List[List[str]]) -> None:
+    """Run the commands in parallel; raise with the first failure's stderr."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate() for p in procs]
+    for cmd, proc, (_, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{err}"
+            )
+
+
 def _build(so_path: str, sources: List[str]) -> None:
-    tmp = f"{so_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}"
-        )
-    os.replace(tmp, so_path)
+    nvcc = _nvcc()
+    tmp = f"{so_path}.{os.getpid()}"
+    objects = [f"{tmp}.{os.path.basename(s)}.o" for s in sources]
+    try:
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(sources, objects)
+        ])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}.so", *objects]])
+        os.replace(f"{tmp}.so", so_path)
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
 
 
 def load_kernels() -> ctypes.CDLL:

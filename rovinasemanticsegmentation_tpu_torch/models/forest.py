@@ -1,5 +1,6 @@
-"""Multi-label random forest: the forest.dat codec, the device forest, and the
-plain descent that the CUDA kernel (``csrc/forest_descent.cu``) is held to.
+"""Multi-label random forest: the forest.dat codec, the device forest, the
+feature-usage reorder, and the plain descent that the CUDA kernels
+(``csrc/forest_descent.cu``, ``csrc/forest_descent_staged.cu``) are held to.
 
 Counterpart of ``rovinasemanticsegmentation_tpu/models/forest.py``. The
 structure-of-arrays ``Forest`` and the binary codec are numpy code copied
@@ -177,6 +178,67 @@ def forest_from_numpy(forest, device: torch.device | str) -> TorchForest:
         max_depth=int(forest.max_depth),
         feat_bits=bits,
         num_features=int(split.max()) + 1,
+    )
+
+
+def usage_permutation(
+    forest: TorchForest, num_features: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Features ordered by how many internal nodes split on them, most first.
+
+    Returns ``(perm, remap)``: column ``k`` of the reordered features is old
+    column ``perm[k]``, and ``remap[old] = new``. Ties keep their order
+    (stable sort). Port of ``usage_permutation`` in the chunk-skip descent
+    experiment (``scripts/exp_descent.py``); the counts do not depend on how
+    nodes are numbered, so the natural records give the same result as the
+    level-major ones.
+    """
+    meta, feat_bits = forest.records[..., 0].cpu().numpy(), forest.feat_bits
+    fmask = (1 << feat_bits) - 1
+    internal = (meta >> feat_bits) != 0
+    counts = np.bincount(
+        (meta & fmask)[internal].ravel(), minlength=num_features
+    )[:num_features]
+    perm = np.argsort(-counts, kind="stable")
+    remap = np.empty_like(perm)
+    remap[perm] = np.arange(len(perm))
+    return perm, remap
+
+
+def permute_forest_features(forest: TorchForest, remap) -> TorchForest:
+    """The forest that splits on reordered columns: feature ``f`` -> ``remap[f]``.
+
+    Only internal nodes are rewritten (a leaf's feature field is never read);
+    ``left << feat_bits`` and the thresholds are kept, so leaf ids stay in the
+    natural numbering. Raises if a remapped feature needs more than
+    ``feat_bits`` bits.
+    """
+    remap_np = np.asarray(remap, np.int64)
+    meta, feat_bits = forest.records[..., 0].cpu().numpy(), forest.feat_bits
+    fmask = (1 << feat_bits) - 1
+    feats = meta & fmask
+    internal = (meta >> feat_bits) != 0
+    if internal.any() and int(feats[internal].max()) >= len(remap_np):
+        raise ValueError(
+            f"forest splits on feature {int(feats[internal].max())}, but the "
+            f"remap covers {len(remap_np)} features"
+        )
+    new_feats = np.where(internal, remap_np[np.where(internal, feats, 0)], feats)
+    if int(new_feats.max()) > fmask:
+        raise ValueError(
+            f"remapped feature {int(new_feats.max())} needs more than "
+            f"{feat_bits} bits"
+        )
+    new_meta = ((meta & ~fmask) | new_feats).astype(np.int32)
+    records = forest.records.clone()
+    records[..., 0] = torch.from_numpy(new_meta).to(records.device)
+    return TorchForest(
+        records=records,
+        leaf_hist=forest.leaf_hist,
+        class_counts=forest.class_counts,
+        max_depth=forest.max_depth,
+        feat_bits=feat_bits,
+        num_features=int(new_feats.max()) + 1,
     )
 
 

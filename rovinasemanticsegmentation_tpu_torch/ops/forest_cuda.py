@@ -36,7 +36,8 @@ def forest_predict_plain(
     return leaves, sum_leaf_histograms_plain(forest.leaf_hist, leaves)
 
 
-def _check(features: torch.Tensor, forest: TorchForest) -> None:
+def check_features(features: torch.Tensor, forest: TorchForest) -> None:
+    """[P, D] float32 on the forest's device, wide enough for its splits."""
     if features.dim() != 2 or features.dtype != torch.float32:
         raise ValueError(
             f"features must be [P, D] float32, got {tuple(features.shape)} "
@@ -58,7 +59,7 @@ def forest_predict(
     forest: TorchForest,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (leaf ids [P, T] int32, log-posterior [P, L, C_max] float32)."""
-    _check(features, forest)
+    check_features(features, forest)
     if features.device.type == "cpu":
         return forest_predict_plain(features, forest)
     if features.device.type != "cuda":

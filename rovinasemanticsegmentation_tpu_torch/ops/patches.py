@@ -10,8 +10,10 @@ of the reflect-padded Lab image and resizes it to ``R x R`` with OpenCV's
 taps, weights in 1/2048ths, rounding ``(acc + 2^21) >> 22``.
 
 :func:`extract_patches_plain` is the plain version of the CUDA kernel in
-``csrc/patches.cu`` (wrapper: ``ops/patches_cuda.py``); both read the same
-tap tables and are bit-identical.
+``csrc/patches.cu`` (wrapper: ``ops/patches_cuda.py``), and
+:func:`extract_patches_separable_plain` that of ``csrc/patches_planar.cu``
+(wrapper: ``ops/patches_planar_cuda.py``); all four read the same tap tables
+and are bit-identical.
 """
 
 from __future__ import annotations
@@ -159,3 +161,46 @@ def extract_patches_plain(
     out = torch.clamp((acc + (1 << 21)) >> 22, 0, 255).to(torch.uint8)
     masked = (half < 0)[..., None, None, None]
     return torch.where(masked, torch.zeros_like(out), out)
+
+
+def extract_patches_separable_plain(
+    padded_lab: torch.Tensor,  # [Hp, Wp, 3] uint8, border = patch_size
+    depth_grid: torch.Tensor,  # [gh, gw] float32 metres (<= 0 masked)
+    patch_size: int,
+    reduce_size: int,
+    stride: int,
+) -> torch.Tensor:  # [gh, gw, R, R, 3] uint8
+    """Row stage, then column stage, on planar channels (kernel D's order).
+
+    The plain version of ``csrc/patches_planar.cu``: unpack to planar int32,
+    ``ri = wy0 img[y0_i, x_k] + wy1 img[y1_i, x_k]`` at the 2R column taps
+    ``x_k`` (x0_j, x1_j interleaved), then ``(wx0 ri[x0_j] + wx1 ri[x1_j] +
+    2^21) >> 22``. Every sum is exact in int32 (< 255 * 2^22), so it is
+    bit-identical to :func:`extract_patches_plain`.
+    """
+    check_patch_inputs(padded_lab, depth_grid, patch_size, stride)
+    dev = padded_lab.device
+    gh, gw = depth_grid.shape
+    r = reduce_size
+    wp = padded_lab.shape[1]
+    t0, t1, w0, w1 = tap_tensors(patch_size, r, dev)
+    half = patch_half_sizes(depth_grid, patch_size)
+    hc = half.clamp(min=0)  # [gh, gw]
+    img = padded_lab.permute(2, 0, 1).reshape(3, -1).to(torch.int32)
+    gy = (torch.arange(gh, device=dev) * stride)[:, None, None]
+    gx = (torch.arange(gw, device=dev) * stride)[None, :, None, None]
+    cols = (gx + torch.stack([t0[hc], t1[hc]], dim=-1)).reshape(gh, gw, 2 * r)
+    wy0, wy1 = w0[hc][..., :, None], w1[hc][..., :, None]  # [gh, gw, R, 1]
+
+    def rows(oy):  # [gh, gw, R] int32 offsets -> [3, gh, gw, R, 2R]
+        idx = (gy + oy.long())[..., :, None] * wp + cols[..., None, :]
+        return img[:, idx]
+
+    ri = wy0 * rows(t0[hc]) + wy1 * rows(t1[hc])  # [3, gh, gw, R(i), 2R]
+    ri = ri.reshape(3, gh, gw, r, r, 2)
+    wx0, wx1 = w0[hc][:, :, None, :], w1[hc][:, :, None, :]  # [gh, gw, 1, R(j)]
+    acc = wx0 * ri[..., 0] + wx1 * ri[..., 1]  # [3, gh, gw, R, R]
+    out = torch.clamp((acc + (1 << 21)) >> 22, 0, 255).to(torch.uint8)
+    out = out.permute(1, 2, 3, 4, 0)
+    masked = (half < 0)[..., None, None, None]
+    return torch.where(masked, torch.zeros_like(out), out).contiguous()

@@ -16,11 +16,17 @@ import torch
 from rovinasemanticsegmentation_tpu_torch.models.forest import (
     TreeArrays,
     build_forest,
+    find_leaves_plain,
     forest_from_numpy,
+    permute_forest_features,
+    usage_permutation,
 )
 from rovinasemanticsegmentation_tpu_torch.ops import forest_cuda, patches_cuda
+from rovinasemanticsegmentation_tpu_torch.ops import forest_staged_cuda
+from rovinasemanticsegmentation_tpu_torch.ops import patches_planar_cuda
 from rovinasemanticsegmentation_tpu_torch.ops.patches import (
     extract_patches_plain,
+    extract_patches_separable_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -96,6 +102,63 @@ def test_forest_kernel_equal(dev, trees, depth, feats):
     assert torch.equal(post, want_post)
 
 
+@pytest.mark.parametrize("stride,h,w,b,r", [
+    (1, 40, 52, 15, 5), (2, 61, 80, 77, 11), (3, 50, 64, 77, 11),
+    (5, 96, 128, 77, 11), (2, 33, 45, 21, 7),
+])
+def test_planar_patches_kernel_bit_exact(dev, stride, h, w, b, r):
+    rng = np.random.default_rng(10 + stride)
+    lab = torch.from_numpy(
+        rng.integers(0, 256, (h + 2 * b, w + 2 * b, 3), dtype=np.uint8)
+    ).to(dev)
+    gh, gw = -(-h // stride), -(-w // stride)
+    depth = rng.uniform(0.05, 9.0, (gh, gw)).astype(np.float32)
+    depth[rng.random((gh, gw)) < 0.1] = 0.0
+    depth_t = torch.from_numpy(depth).to(dev)
+    before = patches_planar_cuda.launches.value
+    got = patches_planar_cuda.extract_patches_planar(lab, depth_t, b, r, stride)
+    assert patches_planar_cuda.launches.value == before + 1
+    want = extract_patches_plain(lab, depth_t, b, r, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, patches_cuda.extract_patches(lab, depth_t, b, r,
+                                                         stride))
+    assert torch.equal(got, extract_patches_separable_plain(lab, depth_t, b,
+                                                            r, stride))
+
+
+@pytest.mark.parametrize("hot,tile_points,trees,feats", [
+    (366, 32, 4, 366),  # whole rows staged, 16-byte vector loads
+    (128, 32, 4, 366),
+    (0, 16, 4, 366),  # nothing staged: every lookup from device memory
+    (366, 7, 4, 366),  # odd tile: rows start unaligned
+    (256, 64, 4, 366),  # 64 KB of shared memory: above the 48 KB default
+    (700, 16, 3, 700),  # D > 512: feat_bits = 10
+])
+def test_staged_descent_kernel_equal(dev, hot, tile_points, trees, feats):
+    rng = np.random.default_rng(hot + tile_points)
+    forest = forest_from_numpy(
+        _random_forest(rng, trees, 10, feats, [8, 9]), dev
+    )
+    x = rng.normal(size=(3001, feats)).astype(np.float32)  # ragged last tile
+    x[::5, :] = np.nan  # NaN goes left
+    thr = forest.records[0, 0, 1].view(torch.float32).item()
+    fmask = (1 << forest.feat_bits) - 1
+    x[1::5, int(forest.records[0, 0, 0].item()) & fmask] = thr  # x == thr
+    perm, remap = usage_permutation(forest, feats)
+    forest_p = permute_forest_features(forest, remap)
+    xp = torch.from_numpy(np.ascontiguousarray(x[:, perm])).to(dev)
+    before = forest_staged_cuda.launches.value
+    got = forest_staged_cuda.find_leaves_staged(xp, forest_p, hot, tile_points)
+    assert forest_staged_cuda.launches.value == before + 1
+    want_b, _ = forest_cuda.forest_predict(torch.from_numpy(x).to(dev), forest)
+    want_plain = find_leaves_plain(xp, forest_p.records, forest_p.max_depth,
+                                   forest_p.feat_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want_plain)
+    assert torch.equal(got, want_b)
+
+
 def test_kernels_reject_bad_inputs(dev):
     lab = torch.zeros((40, 40, 3), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError):
@@ -106,3 +169,21 @@ def test_kernels_reject_bad_inputs(dev):
     forest = forest_from_numpy(_random_forest(rng, 2, 3, 10, [3]), dev)
     with pytest.raises(ValueError):
         forest_cuda.forest_predict(torch.zeros((5, 10)), forest)  # CPU input
+    x = torch.zeros((5, 10), device=dev)
+    staged = forest_staged_cuda.find_leaves_staged
+    for hot, tile_points in ((11, 32), (-1, 32), (10, 0), (10, 600)):
+        with pytest.raises(ValueError):
+            staged(x, forest, hot, tile_points)
+    with pytest.raises(ValueError):
+        staged(torch.zeros((5, 10)), forest, 10)  # CPU input
+    with pytest.raises(ValueError):  # more shared memory than a block has
+        staged(torch.zeros((5, 600), device=dev), forest, 600, 128)
+    planar = patches_planar_cuda.extract_patches_planar
+    depth = torch.ones((4, 4), device=dev)
+    with pytest.raises(ValueError):
+        planar(lab, depth.double(), 15, 5, 2)
+    with pytest.raises(ValueError):  # image too small for a 20-pixel border
+        planar(lab, depth, 20, 5, 2)
+    with pytest.raises(ValueError):  # R = 60 needs too much shared memory
+        planar(torch.zeros((40, 40, 3), dtype=torch.uint8, device=dev),
+               depth, 5, 60, 2)

@@ -170,14 +170,20 @@ def test_port_imports_without_jax():
         "    importlib.import_module(n)\n"
         "assert 'jax' not in {k.split('.')[0] for k, v in sys.modules.items() "
         "if v is not None}\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    names = set(out.stdout.split())
+    assert len(names) >= 20
+    pkg = "rovinasemanticsegmentation_tpu_torch."
+    assert {pkg + m for m in (
+        "ops.forest_staged_cuda", "ops.patches_planar_cuda",
+        "scripts.exp_descent", "scripts.exp_patches",
+    )} <= names
 
 
 def test_chip_smoke_refuses_without_gpu():
