@@ -22,16 +22,29 @@ Phases, each of which raises on failure (exit code 1, no result line):
    and to the plain descent's, and the posteriors summed from them equal to
    B's;
 4. serving: the port's ``Segmenter`` at full width (patch 77 -> 11, stride
-   2, 366 features, 8 + 9 classes, dense CRF off) behind its HTTP services
-   takes 10 VGA keyframes and 2 local maps of 30000 points; all three query
-   services are called, every label is checked to be in range, and both
-   kernels' launch counts must have risen during this phase;
+   2, 366 features, 8 + 9 classes, dense CRF on with 10 mean-field
+   iterations, the configuration of ``bench.py``) behind its HTTP services
+   takes 10 VGA keyframes and 2 local maps of 30000 points; each map's ms,
+   lattice vertex count and vertex bucket are printed; all three query
+   services are called, every label is checked to be in range, both layers
+   must have points that are not Unknown, and both kernels' launch counts
+   must have risen during this phase;
 5. reference: one VGA keyframe and one 30000-point map through the same
-   pipelines on the CPU (plain versions) and on the card must agree;
+   pipelines on the CPU (plain versions) and on the card, with the dense CRF
+   off and on, must agree on >= 99.9% of the map labels; on the card the
+   device lattice build must equal the CPU's and the host build (native
+   builder, padded, sorted stream: same vertex count, equal offsets and
+   blur tables up to the native builder's vertex numbering, barycentric
+   weights within 1e-5), and the mean-field marginals from the two builds
+   must agree within rtol 2e-4 / atol 2e-5;
 6. the kernel-experiment entry points (``scripts/exp_descent.py`` on random
    and on real VGA features, ``scripts/exp_patches.py`` at VGA) run in bench
    mode: each must report parity, and the launch counts of C' and D' must
-   have risen during this phase.
+   have risen during this phase;
+7. one ``torch.profiler`` window over one CRF map (30000 points, 5
+   keyframes): device time of fusion, lattice build and mean field, the
+   wall time, the device's busy time and idle share; and the same map's
+   unprofiled ms with the dense CRF on and off.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel results, and ``{"ok": true, "device": {...}}``. Inputs and
@@ -78,7 +91,7 @@ CONFIG = {
             ],
         },
     ],
-    "use_dense_crf": False,
+    "use_dense_crf": True,
     "dcrf_xyz_kernel": 0.5,
     "dcrf_rgb_kernel": 4.0,
     "dcrf_kernel_weight": 10.0,
@@ -198,6 +211,9 @@ def run(card: str) -> dict:
     from rovinasemanticsegmentation_tpu_torch.fusion.projector import (
         MultiProjector,
     )
+    from rovinasemanticsegmentation_tpu_torch.models.crf import (
+        potts_mean_field_multi_t,
+    )
     from rovinasemanticsegmentation_tpu_torch.models.forest import (
         find_leaves_plain,
         forest_from_numpy,
@@ -214,9 +230,20 @@ def run(card: str) -> dict:
         extract_patches_plain,
         extract_patches_separable_plain,
     )
+    from rovinasemanticsegmentation_tpu_torch.models.lattice import (
+        attach_sorted_stream,
+        build_lattice,
+        build_lattice_device,
+        lattice_filter_t,
+        lattice_tensors,
+        pad_lattice,
+    )
     from rovinasemanticsegmentation_tpu_torch.pipelines.local_map import (
+        CrfParams,
         LocalMapPipeline,
         MapNodeFrames,
+        crf_feats,
+        crf_labels_multi,
     )
     from rovinasemanticsegmentation_tpu_torch.pipelines.single_frame import (
         SingleFramePipeline,
@@ -404,17 +431,21 @@ def run(card: str) -> dict:
         seg.drain(timeout=600)
         torch.cuda.synchronize()
         frame_s = time.perf_counter() - t0
+        per_map = []  # (ms, vertex count, bucket)
         for k, (pts, cols) in enumerate(maps):
             nodes = [
                 MapNode(f + 1, pose_of(f), [f + 1])
                 for f in range(k * MAP_EVERY, (k + 1) * MAP_EVERY)
             ]
             seg.on_new_local_map(LocalMapData(k, nodes, pts, cols))
-        t0 = time.perf_counter()
-        seg.drain(timeout=600)
-        torch.cuda.synchronize()
-        map_s = time.perf_counter() - t0
-        return frame_s, map_s
+            t0 = time.perf_counter()
+            seg.drain(timeout=600)
+            torch.cuda.synchronize()
+            ms = 1000 * (time.perf_counter() - t0)
+            probe = seg._map_pipeline._pending_m[-1]  # this map's count
+            per_map.append((ms, probe.value(), probe.bucket))
+        seg._map_pipeline.flush()
+        return frame_s, per_map
 
     # A first session warms the allocator and the kernels' first launches.
     serve_session(Segmenter(Config(data=CONFIG), topics, "cuda",
@@ -424,7 +455,7 @@ def run(card: str) -> dict:
     server.start()
     try:
         reset_counts()
-        frame_s, map_s = serve_session(seg)
+        frame_s, per_map = serve_session(seg)
         launches = {
             "patches": patches_cuda.launches.value,
             "forest_descent": forest_cuda.launches.value,
@@ -450,8 +481,12 @@ def run(card: str) -> dict:
                         & (labels[MAP_POINTS:] < 9)).all()),
                   f"map {map_id}: object labels out of range")
             known = (labels[:MAP_POINTS] != 7).mean()
+            known_obj = (labels[MAP_POINTS:] != 8).mean()
+            check(known > 0 and known_obj > 0,
+                  f"map {map_id}: a layer is all Unknown")
             print(f"phase 4: map {map_id}: {labels.size} labels in range, "
-                  f"{known:.1%} of points with a known material")
+                  f"{known:.1%} of points with a known material, "
+                  f"{known_obj:.1%} with a known object")
     finally:
         server.stop()
         seg.stop()
@@ -460,34 +495,90 @@ def run(card: str) -> dict:
         results[name]["launches"] = n
     print(f"phase 4: {1000 * frame_s / N_KEYFRAMES:.3f} ms per keyframe "
           f"({N_KEYFRAMES} VGA keyframes) ({card})")
-    print(f"phase 4: {1000 * map_s / len(maps):.3f} ms per map "
-          f"({MAP_POINTS} points, {MAP_EVERY} keyframes) ({card})")
+    for k, (ms, m, bucket) in enumerate(per_map):
+        check(m <= bucket, f"map {k}: {m} vertices overflow the bucket {bucket}")
+        print(f"phase 4: map {k}: {ms:.3f} ms, dense CRF on, {m} lattice "
+              f"vertices, bucket {bucket} ({MAP_POINTS} points, {MAP_EVERY} "
+              f"keyframes) ({card})")
+    print(f"phase 4: {sum(p[0] for p in per_map) / len(per_map):.3f} ms per "
+          f"map ({card})")
     print(f"phase 4: launches while serving: {launches}")
 
     # ---- phase 5: the card against the CPU (plain versions) on one frame
     rgb, depth = frames[0]
     projector = MultiProjector.from_calibrations([calib], H, W, min_distance=0.5)
-    outs = {}
+    pts, cols = maps[0]
+    posts, labels5, nodes5 = {}, {}, {}
     for name in ("cpu", "cuda"):
         fp = SingleFramePipeline(cfg, forest_np, STRIDE, name, fill_value=0.0)
         res = fp.run(rgb, depth, calib)
-        mp = LocalMapPipeline(projector, [8, 9], [7, 8], name)
-        node = MapNodeFrames(pose=pose_of(0), posteriors=[res.posteriors])
-        pts, cols = maps[0]
-        outs[name] = (
-            [p.cpu().numpy() for p in res.posteriors],
-            mp.run(pts, cols, [node]),
-        )
-    for li, (p_cpu, p_gpu) in enumerate(zip(outs["cpu"][0], outs["cuda"][0])):
+        posts[name] = [p.cpu().numpy() for p in res.posteriors]
+        nodes5[name] = [MapNodeFrames(pose=pose_of(0), posteriors=[res.posteriors])]
+        for crf_on in (False, True):
+            mp = LocalMapPipeline(projector, [8, 9], [7, 8], name,
+                                  crf=CrfParams(use_dense_crf=crf_on))
+            labels5[name, crf_on] = mp.run(pts, cols, nodes5[name])
+            mp.flush()
+    for li, (p_cpu, p_gpu) in enumerate(zip(posts["cpu"], posts["cuda"])):
         check(bool(np.isfinite(p_gpu).all()), f"layer {li}: non-finite posterior")
         close = np.isclose(p_gpu, p_cpu, rtol=1e-5, atol=1e-4).all(axis=-1)
         check(close.mean() >= 0.999,
               f"layer {li}: posteriors agree on {close.mean():.4%} of pixels")
-    for li, (l_cpu, l_gpu) in enumerate(zip(outs["cpu"][1], outs["cuda"][1])):
-        agree = (l_cpu == l_gpu).mean()
-        check(agree >= 0.999, f"layer {li}: map labels agree on {agree:.4%}")
-        print(f"phase 5: layer {li}: card vs CPU map labels agree on "
-              f"{agree:.4%} of {l_cpu.size} points")
+    for crf_on in (False, True):
+        pairs = zip(labels5["cpu", crf_on], labels5["cuda", crf_on])
+        for li, (l_cpu, l_gpu) in enumerate(pairs):
+            agree = (l_cpu == l_gpu).mean()
+            check(agree >= 0.999, f"layer {li}, dense CRF {crf_on}: map "
+                  f"labels agree on {agree:.4%}")
+            print(f"phase 5: layer {li}, dense CRF {'on' if crf_on else 'off'}:"
+                  f" card vs CPU map labels agree on {agree:.4%} of "
+                  f"{l_cpu.size} points")
+
+    # The card's device lattice build against the CPU's and the host build.
+    bucket = 1 << 14
+    feats_cpu = crf_feats(torch.from_numpy(pts), torch.from_numpy(cols), 0.5, 4.0)
+    built = build_lattice_device(feats_cpu.to(dev), bucket)
+    built_cpu = build_lattice_device(feats_cpu, bucket)
+    for t_gpu, t_cpu in zip(built, built_cpu):
+        check(torch.equal(t_gpu.cpu(), t_cpu), "the card's device lattice "
+              "build differs from the CPU's")
+    m = int(built[-1])
+    host = attach_sorted_stream(pad_lattice(build_lattice(feats_cpu.numpy()),
+                                            bucket))
+    check(host.num_vertices == bucket and m <= bucket,
+          f"host build pads to {host.num_vertices}, device m = {m}")
+    offsets_t = built[4].cpu().numpy()
+    ren = np.full(bucket + 1, bucket)  # host vertex id -> device vertex id
+    ren[host.offsets.reshape(-1)] = offsets_t.T.reshape(-1)
+    check(np.array_equal(ren[host.offsets], offsets_t.T)
+          and len(np.unique(ren[:m])) == m
+          and (host.offsets < m).all(),
+          "device and host builds differ in vertices or offsets")
+    for table, dev_table in (("blur_n1", built[6]), ("blur_n2", built[7])):
+        want = np.full((host.dim + 1, bucket), bucket)
+        want[:, ren[:m]] = ren[getattr(host, table)[:, :m]]
+        check(np.array_equal(want, dev_table.cpu().numpy()),
+              f"device and host builds differ in {table}")
+    bary_err = float(np.abs(host.barycentric.T - built[5].cpu().numpy()).max())
+    check(bary_err <= 1e-5, f"barycentric weights differ by {bary_err}")
+    fused = torch.cat(LocalMapPipeline(projector, [8, 9], [7, 8], "cuda")
+                      .fuse_unaries(pts, nodes5["cuda"]), dim=1)
+
+    def marginals(lattice, num_vertices):
+        ones = torch.ones((1, MAP_POINTS), device=dev)
+        norm = 1.0 / torch.sqrt(
+            lattice_filter_t(ones, *lattice, num_vertices)[0] + 1e-20)
+        return potts_mean_field_multi_t(-fused.T, *lattice, norm, 10.0, (8, 9),
+                                        num_vertices, 10)
+
+    q_dev = marginals(built[:8], bucket)
+    q_host = marginals(lattice_tensors(host, dev), host.num_vertices)
+    q_err = float((q_dev - q_host).abs().max())
+    check(bool(torch.isclose(q_dev, q_host, rtol=2e-4, atol=2e-5).all()),
+          f"mean field from the device and host builds differs by {q_err}")
+    print(f"phase 5: device lattice build == CPU build; == host (native) "
+          f"build up to vertex numbering: {m} vertices, barycentric within "
+          f"{bary_err:.2e}; marginals from the two builds within {q_err:.2e}")
 
     # ---- phase 6: the kernel-experiment entry points, in bench mode
     reset_counts()
@@ -507,6 +598,86 @@ def run(card: str) -> dict:
         check(n > 0, f"kernel {name} was not launched by the entry points")
         results[name]["launches"] = n
     print(f"phase 6: entry points report parity; launches: {launches}")
+
+    # ---- phase 7: one profiled CRF map, split by stage
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fp = SingleFramePipeline(cfg, forest_np, STRIDE, "cuda", fill_value=0.0)
+    batch = fp.run_batch([f[0] for f in frames[:MAP_EVERY]],
+                         [f[1] for f in frames[:MAP_EVERY]],
+                         [calib] * MAP_EVERY)
+    nodes7 = [MapNodeFrames(pose=pose_of(f), posteriors=[r.posteriors])
+              for f, r in enumerate(batch)]
+    pts_t = torch.from_numpy(pts).to(dev)
+    cols_t = torch.from_numpy(cols).to(dev)
+    mp = LocalMapPipeline(projector, [8, 9], [7, 8], "cuda",
+                          crf=CrfParams(use_dense_crf=True))
+    served = mp.run_device(pts_t, cols_t, nodes7)  # the first map synchronises
+    mp.flush()
+    torch.cuda.synchronize()
+
+    def median_map_ms(pipeline):
+        """The same map unprofiled, median of 3 (steady state: no sync)."""
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pipeline.run_device(pts_t, cols_t, nodes7)
+            torch.cuda.synchronize()
+            runs.append(1000 * (time.perf_counter() - t0))
+        pipeline.flush()
+        return sorted(runs)[1]
+
+    map_ms = median_map_ms(mp)
+    off_ms = median_map_ms(LocalMapPipeline(projector, [8, 9], [7, 8], "cuda"))
+    # map_fused's three stages, each in a range that the profiler also
+    # draws on the device's timeline; a device activity belongs to the
+    # stage whose device-side range holds its start.
+    stage_names = ("fusion", "lattice build", "mean field")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function(stage_names[0]):
+            fused = torch.cat(mp.fuse_unaries(pts_t, nodes7), dim=1)
+        with record_function(stage_names[1]):
+            built = build_lattice_device(crf_feats(pts_t, cols_t, 0.5, 4.0),
+                                         mp._m_bucket)
+        with record_function(stage_names[2]):
+            staged = crf_labels_multi(
+                fused, built[:8], 10.0, [8, 9], mp._m_bucket, 10, [7, 8],
+                built[-1] > mp._m_bucket,
+            )
+        torch.cuda.synchronize()
+        wall_ms = 1000 * (time.perf_counter() - t0)
+    for a, b in zip(staged, served):
+        check(torch.equal(a, b), "the profiled stages differ from run_device")
+    device = [e for e in prof.events() if e.device_type.name != "CPU"]
+    windows = {e.name: e.time_range for e in device if e.name in stage_names}
+    device = [e for e in device if e.name not in stage_names]
+    check(len(windows) == 3, f"stage ranges on the device: {sorted(windows)}")
+    busy_us = 0.0
+    edge = float("-inf")
+    for e in sorted(device, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, edge), e.time_range.end
+        busy_us += max(0.0, hi - lo)  # union of activity intervals
+        edge = max(edge, hi)
+    stages = {}
+    for name in stage_names:
+        r = windows[name]
+        inside = [e for e in device if r.start <= e.time_range.start < r.end]
+        stages[name] = (sum(e.time_range.elapsed_us() for e in inside) / 1000,
+                        len(inside))
+    busy_ms = busy_us / 1000
+    check(busy_ms > 0, "the profiler saw no device time")
+    print(f"phase 7: one CRF map ({MAP_POINTS} points, {MAP_EVERY} keyframes, "
+          f"10 iterations) under torch.profiler: device time "
+          + ", ".join(f"{k} {ms:.3f} ms ({n} activities)"
+                      for k, (ms, n) in stages.items())
+          + f"; device busy {busy_ms:.3f} ms ({len(device)} activities) of "
+          f"{wall_ms:.3f} ms profiled wall; the same map unprofiled "
+          f"{map_ms:.3f} ms (median of 3), device idle share "
+          f"{1 - busy_ms / map_ms:.1%} ({card})")
+    print(f"phase 7: the same map with the dense CRF off: {off_ms:.3f} ms "
+          f"(median of 3) ({card})")
 
     return {
         "kernels": [

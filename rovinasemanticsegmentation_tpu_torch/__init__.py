@@ -18,7 +18,8 @@ on a CUDA tensor it launches the kernel or raises. The package never imports
 (``utils/config.py``, ``utils/calibration.py``, ``utils/labels.py``,
 ``serve/camera.py`` and ``native/``).
 
-The dense CRF (``use_dense_crf``) is not ported yet.
+The map path's dense CRF (``models/lattice.py``, ``models/crf.py``) is
+plain PyTorch, like its JAX counterpart, which has no Pallas kernel.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, and the dense
+CRF's lattice build and mean field against the CPU's, on the card.
 
 Marked ``cuda``: each test skips when ``torch.cuda.is_available()`` is
 false. On a machine with an NVIDIA GPU (which need not have JAX; the
@@ -13,6 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from rovinasemanticsegmentation_tpu_torch.models.crf import (
+    potts_mean_field_multi_t,
+)
 from rovinasemanticsegmentation_tpu_torch.models.forest import (
     TreeArrays,
     build_forest,
@@ -20,6 +24,10 @@ from rovinasemanticsegmentation_tpu_torch.models.forest import (
     forest_from_numpy,
     permute_forest_features,
     usage_permutation,
+)
+from rovinasemanticsegmentation_tpu_torch.models.lattice import (
+    build_lattice_device,
+    lattice_filter_t,
 )
 from rovinasemanticsegmentation_tpu_torch.ops import forest_cuda, patches_cuda
 from rovinasemanticsegmentation_tpu_torch.ops import forest_staged_cuda
@@ -187,3 +195,48 @@ def test_kernels_reject_bad_inputs(dev):
     with pytest.raises(ValueError):  # R = 60 needs too much shared memory
         planar(torch.zeros((40, 40, 3), dtype=torch.uint8, device=dev),
                depth, 5, 60, 2)
+
+
+def _room_features(n, seed):
+    """``[xyz * 0.5 ; rgb * 4]`` features of a room-scale coloured cloud."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-3.0, -1.5, 0.5], [3.0, 1.5, 6.0], (n, 3))
+    rgb = rng.uniform(0.0, 1.0, (n, 3))
+    return torch.from_numpy(
+        np.concatenate([pts * 0.5, rgb * 4.0], axis=1).astype(np.float32)
+    )
+
+
+@pytest.mark.parametrize("n,bucket", [(30000, 1 << 14), (2000, 1 << 9)])
+def test_device_lattice_build_equals_cpu(dev, n, bucket):
+    """Every output equal, including an overflowing build (2000 points in
+    512 slots)."""
+    feats = _room_features(n, n)
+    got = build_lattice_device(feats.to(dev), bucket)
+    want = build_lattice_device(feats, bucket)
+    assert (int(want[-1]) > bucket) == (n == 2000)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w)
+
+
+def test_mean_field_on_card_within_contract(dev):
+    n, bucket, blocks = 30000, 1 << 14, (8, 9)
+    feats = _room_features(n, 1)
+    lattice = build_lattice_device(feats, bucket)[:8]
+    rng = np.random.default_rng(2)
+    energy = torch.from_numpy(
+        (rng.normal(size=(sum(blocks), n)) * 3.0).astype(np.float32)
+    )
+
+    def marginals(device):
+        lat = [t.to(device) for t in lattice]
+        ones = torch.ones((1, n), device=device)
+        norm = 1.0 / torch.sqrt(lattice_filter_t(ones, *lat, bucket)[0] + 1e-20)
+        return potts_mean_field_multi_t(energy.to(device), *lat, norm, 10.0,
+                                        blocks, bucket, 10)
+
+    got = marginals(dev).cpu()
+    want = marginals("cpu")
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)

@@ -1,6 +1,6 @@
-"""PyTorch port: serving end to end against the JAX Segmenter, the HTTP
-services, the unported-CRF guard, device selection, and the port's
-independence from JAX."""
+"""PyTorch port: serving end to end against the JAX Segmenter (dense CRF off
+and on), the HTTP services, device selection, and the port's independence
+from JAX."""
 
 import json
 import os
@@ -50,9 +50,10 @@ def _pose(x):
     return p
 
 
-def _drive(seg, n_frames=3, n_points=60):
+def _drive(seg, n_frames=3, n_points=60, with_rgb=False):
     """Frames 1..n with distinct poses, one map over them plus a node whose
-    frame never arrived; returns the map's flattened labels."""
+    frame never arrived (with a cloud RGB if ``with_rgb``); returns the
+    map's flattened labels."""
     seg.initialize_projector(["camera_front"], [make_calib()], (H, W))
     seg.stop()
     rng = np.random.default_rng(1)
@@ -66,10 +67,12 @@ def _drive(seg, n_frames=3, n_points=60):
         [rng.uniform(-0.5, 0.7, n_points), rng.uniform(-0.4, 0.4, n_points),
          rng.uniform(1.5, 3.0, n_points)], axis=1,
     ).astype(np.float32)
+    rgb = (rng.uniform(0, 1, (n_points, 3)).astype(np.float32)
+           if with_rgb else None)
     # Seq 0 was never segmented: fusion must skip it (segmenter.cpp:618-621).
     nodes = [tseg.MapNode(s, _pose(0.1 * s), [s])
              for s in range(0, n_frames + 1)]
-    seg.on_new_local_map(tseg.LocalMapData(5, nodes, pts, None))
+    seg.on_new_local_map(tseg.LocalMapData(5, nodes, pts, rgb))
     seg.drain()
     assert seg.stored_semantics_ids() == [5]
     _, labels = seg.get_local_map_segmentation(5, ["material", "object"])
@@ -123,12 +126,24 @@ def test_external_hook_path():
     assert labels.shape == (2 * 60,)
 
 
-def test_dense_crf_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CrfParams(use_dense_crf=True)
-    with pytest.raises(NotImplementedError):
-        tseg.Segmenter(Config(data=dict(CONFIG, use_dense_crf=True)), TOPICS,
-                       "cpu", forest=_forest())
+def test_dense_crf_config_reaches_the_map_pipeline():
+    assert CrfParams(use_dense_crf=True).use_dense_crf
+    conf = dict(CONFIG, use_dense_crf=True, dcrf_iterations=3)
+    seg = tseg.Segmenter(Config(data=conf), TOPICS, "cpu", forest=_forest())
+    seg.initialize_projector(["camera_front"], [make_calib()], (H, W))
+    seg.stop()
+    assert seg._map_pipeline.crf.use_dense_crf
+    assert seg._map_pipeline.crf.iterations == 3
+
+
+def test_segmenter_crf_map_labels_equal_jax():
+    forest = _forest()
+    conf = Config(data=dict(CONFIG, use_dense_crf=True, dcrf_iterations=3))
+    want = _drive(jseg.Segmenter(conf, TOPICS, forest=forest), with_rgb=True)
+    got = _drive(tseg.Segmenter(conf, TOPICS, "cpu", forest=forest),
+                 with_rgb=True)
+    np.testing.assert_array_equal(got, want)
+    assert (got != np.repeat([2, 3], 60)).any()  # not all Unknown
 
 
 def test_resolve_device():
