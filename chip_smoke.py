@@ -44,7 +44,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
 7. one ``torch.profiler`` window over one CRF map (30000 points, 5
    keyframes): device time of fusion, lattice build and mean field, the
    wall time, the device's busy time and idle share; and the same map's
-   unprofiled ms with the dense CRF on and off.
+   unprofiled ms with the dense CRF on and off;
+8. the streaming step: ``StreamingPipeline.run_staged`` over the 10 VGA
+   keyframes and both maps (dense CRF on, 10 iterations) after one
+   validating ``run_device`` map; frame and map labels must equal the
+   separate paths' (``run_batch_stacked``, then ``run_device`` per map) in
+   the same call, kernels A and B must launch; ms per batch and per
+   keyframe of both;
+9. the evaluation CLI: ``cli.test_multi`` of the port over a synthetic
+   4-image VGA dataset (the fixture forest as its shared model) on the card
+   and on the CPU; the confusion matrices must agree on >= 99.9% of the
+   counted pixels, kernels A and B must launch; the card's time per image;
+10. the 2D dense CRF: ``cli.dense_inference.run`` on a 320x240 image with
+   21 labels, half of its annotation unknown, with both lattice builds on
+   the card and on the CPU; card and CPU labels, and the two builds, must
+   agree on >= 99.99% of the pixels; ms per build on the card (median of
+   3) and the vertex counts.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel results, and ``{"ok": true, "device": {...}}``. Inputs and
@@ -53,9 +68,13 @@ weights are made from fixed seeds; nothing here uses JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -166,6 +185,74 @@ def make_cloud(rng, frames, first):
     )
 
 
+def make_demo_pair(rng, h, w, labels=21):
+    """A dense_inference input: an image of noisy piecewise-constant colour
+    regions (Voronoi cells of 24 seeds) and its annotation, each region in
+    one of ``labels`` colours, half of the pixels unknown (black)."""
+    ys, xs = np.mgrid[0:h, 0:w]
+    seeds = rng.uniform([0, 0], [h, w], (24, 2))
+    region = np.argmin((ys[..., None] - seeds[:, 0]) ** 2
+                       + (xs[..., None] - seeds[:, 1]) ** 2, axis=-1)
+    region_label = np.concatenate([np.arange(labels),
+                                   rng.integers(0, labels, 24 - labels)])
+    colours = rng.integers(30, 226, (24, 3))
+    im = colours[region] + rng.normal(0, 12, (h, w, 3))
+    i = np.arange(labels)[:, None]
+    palette = np.concatenate([(i * 37 + 20) % 256, (i * 91 + 40) % 256,
+                              (i * 53 + 60) % 256], axis=1)
+    anno = palette[region_label[region]]
+    anno[rng.random((h, w)) < 0.5] = 0
+    return (np.clip(im, 0, 255).astype(np.uint8), anno.astype(np.uint8))
+
+
+def write_eval_dataset(root, rng, frames, calib):
+    """A dataset in the reference layout (as tests/test_cli.py builds it)
+    from VGA ``frames``, with ground truth from depth bands, and its
+    config -> config path. The fixture forest is the shared model."""
+    from rovinasemanticsegmentation_tpu.utils.imageio import save_color
+    from rovinasemanticsegmentation_tpu.utils.labels import RgbLabelConversion
+
+    for sub in ("rgb", "depth", "mat_labels", "obj_labels", "calibration",
+                "splits", "models"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    codings = {c["name"]: c["coding"] for c in CONFIG["color_codings"]}
+    mat_conv = RgbLabelConversion(codings["material"])
+    obj_conv = RgbLabelConversion(codings["object"])
+    names = [f"img{i}" for i in range(len(frames))]
+    for name, (rgb, depth) in zip(names, frames):
+        save_color(f"{root}/rgb/{name}.png", rgb)
+        with open(f"{root}/depth/{name}.pgm", "wb") as f:
+            f.write(b"P5\n%d %d\n65535\n" % (W, H))
+            f.write(depth.astype(">u2").tobytes())
+        mat = np.digitize(depth, [1500, 2500, 3000, 3500, 4000, 4500, 5000])
+        mat = mat.astype(np.int8)
+        mat[rng.random((H, W)) < 0.05] = -1  # void
+        save_color(f"{root}/mat_labels/{name}_L.png", mat_conv.label_to_rgb(mat))
+        obj = np.digitize(depth, np.linspace(1000, 5500, 8))
+        obj = (obj + (np.arange(W) >= W // 2)) % 9
+        save_color(f"{root}/obj_labels/{name}_L.png",
+                   obj_conv.label_to_rgb(obj.astype(np.int8)))
+        calib.save_to_file(f"{root}/calibration/{name}.json")
+    with open(f"{root}/splits/test.json", "w") as f:
+        json.dump(names, f)
+    shutil.copy(FIXTURE, f"{root}/models/forest_shared.dat")
+    config = dict(
+        CONFIG, root_dir=root, color_dir="rgb/", color_ext=".png",
+        depth_dir="depth/", depth_ext=".pgm",
+        material_label_dir="mat_labels/", material_label_ext="_L.png",
+        object_label_dir="obj_labels/", object_label_ext="_L.png",
+        material_result_dir="mat_results/", material_result_ext=".png",
+        object_result_dir="obj_results/", object_result_ext=".png",
+        calibration_dir="calibration/", calibration_ext=".json",
+        file_names_test="splits/test.json", training_label_prefix="shared",
+        forest_file_name="models/forest_shared.dat",
+    )
+    path = f"{root}/config.json"
+    with open(path, "w") as f:
+        json.dump(config, f)
+    return path
+
+
 def pose_of(f):
     p = np.eye(4, dtype=np.float32)
     p[:3, 3] = DRIFT * f
@@ -259,6 +346,18 @@ def run(card: str) -> dict:
     )
     from rovinasemanticsegmentation_tpu_torch.serve.services import (
         SegmentationServiceServer,
+    )
+    from rovinasemanticsegmentation_tpu.utils.imageio import save_ppm
+    from rovinasemanticsegmentation_tpu_torch.cli import dense_inference
+    from rovinasemanticsegmentation_tpu_torch.cli import (
+        test_multi as cli_test_multi,
+    )
+    from rovinasemanticsegmentation_tpu_torch.models.crf2d_device import (
+        _dense2d_device_impl,
+    )
+    from rovinasemanticsegmentation_tpu_torch.pipelines.streaming import (
+        StreamingPipeline,
+        pack_poses,
     )
 
     counters = (patches_cuda.launches, forest_cuda.launches,
@@ -678,6 +777,161 @@ def run(card: str) -> dict:
           f"{1 - busy_ms / map_ms:.1%} ({card})")
     print(f"phase 7: the same map with the dense CRF off: {off_ms:.3f} ms "
           f"(median of 3) ({card})")
+
+    # ---- phase 8: the streaming step against the separate paths
+    b = N_KEYFRAMES
+    n_maps = N_KEYFRAMES // MAP_EVERY
+    stacks = (
+        torch.from_numpy(np.stack([f[0] for f in frames])).to(dev),
+        torch.from_numpy(np.stack([f[1] for f in frames]).astype(np.int32)).to(dev),
+        np.tile(calib.intrinsic_inverse[None], (b, 1, 1)).astype(np.float32),
+        np.tile(calib.rotation[None], (b, 1, 1)).astype(np.float32),
+        np.tile(calib.translation[None], (b, 1)).astype(np.float32),
+    )
+    clouds8 = torch.from_numpy(np.stack([m[0] for m in maps])).to(dev)
+    crgb8 = torch.from_numpy(np.stack([m[1] for m in maps])).to(dev)
+    poses8 = np.stack([
+        pack_poses(projector, [pose_of(f) for f in range(k * MAP_EVERY,
+                                                         (k + 1) * MAP_EVERY)])
+        for k in range(n_maps)
+    ])
+    fp8 = SingleFramePipeline(cfg, forest_np, STRIDE, "cuda", fill_value=0.0)
+    mp8 = LocalMapPipeline(projector, [8, 9], [7, 8], "cuda",
+                           crf=CrfParams(use_dense_crf=True))
+
+    def separate():
+        results = fp8.run_batch_stacked(*stacks)
+        map_labels = []
+        for k in range(n_maps):
+            nodes = [MapNodeFrames(pose=pose_of(f),
+                                   posteriors=[results[f].posteriors])
+                     for f in range(k * MAP_EVERY, (k + 1) * MAP_EVERY)]
+            map_labels.append(mp8.run_device(clouds8[k], crgb8[k], nodes))
+        return [r.labels for r in results], map_labels
+
+    stream = StreamingPipeline(fp8, mp8, MAP_EVERY)
+
+    def staged():
+        return stream.run_staged(*stacks, clouds8, crgb8, poses8)
+
+    want8 = separate()  # the first map validates the bucket for 30000 points
+    staged()  # warm
+    torch.cuda.synchronize()
+    mp8.flush()
+    reset_counts()
+    got8 = staged()
+    launches8 = {"patches": patches_cuda.launches.value,
+                 "forest_descent": forest_cuda.launches.value}
+    torch.cuda.synchronize()
+    mp8.flush()
+    for f, (a, w) in enumerate(zip(got8[0], want8[0])):
+        for la, lw in zip(a, w):
+            check(torch.equal(la, lw), f"streaming: frame {f} labels differ "
+                  "from the separate path's")
+    for k, (a, w) in enumerate(zip(got8[1], want8[1])):
+        for la, lw in zip(a, w):
+            check(torch.equal(la, lw), f"streaming: map {k} labels differ "
+                  "from run_device's")
+    for name, n in launches8.items():
+        check(n > 0, f"kernel {name} was not launched by the streaming step")
+
+    runs8 = {staged: [], separate: []}
+    for _ in range(3):  # interleaved, so that drift of the host hits both
+        for fn, runs in runs8.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append(1000 * (time.perf_counter() - t0))
+            mp8.flush()
+    staged_ms, separate_ms = (sorted(r)[1] for r in runs8.values())
+    print(f"phase 8: streaming step == separate paths ({b} VGA keyframes, "
+          f"{n_maps} maps of {MAP_POINTS} points, dense CRF on); launches "
+          f"{launches8}")
+    print(f"phase 8: run_staged {staged_ms:.3f} ms per batch, "
+          f"{staged_ms / b:.3f} ms per keyframe; separate paths "
+          f"{separate_ms:.3f} ms per batch, {separate_ms / b:.3f} ms per "
+          f"keyframe (median of 3) ({card})")
+
+    # ---- phase 9: the evaluation CLI on the card and on the CPU
+    with tempfile.TemporaryDirectory() as root:
+        conf_path = write_eval_dataset(root, np.random.default_rng(3),
+                                       frames[:4], calib)
+        accs, times = {}, {}
+        for name in ("cuda", "cpu"):
+            out = io.StringIO()
+            if name == "cuda":
+                reset_counts()
+            with contextlib.redirect_stdout(out):
+                accs[name] = cli_test_multi.main(
+                    ["--conf", conf_path, "--device", name])
+            if name == "cuda":
+                launches9 = {"patches": patches_cuda.launches.value,
+                             "forest_descent": forest_cuda.launches.value}
+            times[name] = [l for l in out.getvalue().splitlines()
+                           if l.startswith("Time per image")]
+            check(len(times[name]) == 1, f"no time line on {name}")
+    for name, n in launches9.items():
+        check(n > 0, f"kernel {name} was not launched by cli.test_multi")
+    for li, (a_gpu, a_cpu) in enumerate(zip(accs["cuda"], accs["cpu"])):
+        moved = int(np.abs(a_gpu.confusion - a_cpu.confusion).sum())
+        agree = 1.0 - moved / (2 * a_cpu.total)
+        check(a_cpu.total > 0 and agree >= 0.999,
+              f"layer {li}: card and CPU confusion matrices agree on "
+              f"{agree:.4%} of counted pixels")
+        print(f"phase 9: layer {li}: confusion matrices card vs CPU differ "
+              f"by {moved} counts over {a_cpu.total} counted pixels "
+              f"(agreement >= {agree:.4%}); global accuracy "
+              f"{a_gpu.global_accuracy():.2f}% on the card")
+    print(f"phase 9: cli.test_multi, 4 VGA images: {times['cuda'][0]} s on "
+          f"the card ({card}); {times['cpu'][0]} s on the CPU; launches "
+          f"{launches9}")
+
+    # ---- phase 10: the 2D dense CRF demo, both builds, card and CPU
+    im, anno = make_demo_pair(np.random.default_rng(10), 240, 320)
+    labels10, ms10 = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        save_ppm(f"{root}/im.ppm", im)
+        save_ppm(f"{root}/anno.ppm", anno)
+        for build in (True, False):
+            for name in ("cuda", "cpu"):
+                labels10[build, name] = dense_inference.run(
+                    f"{root}/im.ppm", f"{root}/anno.ppm", f"{root}/out.ppm",
+                    device_build=build, device=name)
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dense_inference.run(f"{root}/im.ppm", f"{root}/anno.ppm",
+                                    f"{root}/out.ppm", device_build=build,
+                                    device="cuda")
+                torch.cuda.synchronize()
+                runs.append(1000 * (time.perf_counter() - t0))
+            ms10[build] = sorted(runs)[1]
+    builds = {True: "device build", False: "host build"}
+    for build, what in builds.items():
+        agree = (labels10[build, "cuda"] == labels10[build, "cpu"]).mean()
+        check(agree >= 0.9999, f"dense_inference {what}: card and CPU labels "
+              f"agree on {agree:.4%}")
+        print(f"phase 10: {what}: card vs CPU labels agree on {agree:.4%} of "
+              f"{im.shape[0] * im.shape[1]} pixels")
+    agree = (labels10[True, "cuda"] == labels10[False, "cuda"]).mean()
+    check(agree >= 0.9999, f"dense_inference: the two builds agree on "
+          f"{agree:.4%} on the card")
+    lab = dense_inference.annotation_labels(anno)
+    _, counts = _dense2d_device_impl(
+        torch.from_numpy(im).to(dev), torch.from_numpy(lab.astype(np.int8)).to(dev),
+        torch.tensor(dense_inference.annotation_energies(),
+                     dtype=torch.float32, device=dev),
+        240, 320, dense_inference.M, 5, (1 << 14, 1 << 14),
+        ((3.0, 3.0, 3.0), (80.0, 80.0, 13.0, 13.0, 13.0, 10.0)),
+    )
+    print(f"phase 10: the two builds agree on {agree:.4%} on the card; "
+          f"vertex counts (grid, bilateral) {counts.tolist()} in 16384-slot "
+          f"buckets; {(lab < 0).mean():.1%} of the annotation unknown")
+    print(f"phase 10: dense_inference 320x240, 21 labels, 5 iterations: "
+          f"device build {ms10[True]:.3f} ms, host build {ms10[False]:.3f} ms "
+          f"per image on the card (median of 3) ({card})")
 
     return {
         "kernels": [

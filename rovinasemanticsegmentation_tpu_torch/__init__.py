@@ -15,11 +15,15 @@ kernels of the keyframe path are hand-written CUDA C++ for ``sm_90a``
 On a CPU tensor each kernel wrapper runs the kernel's plain PyTorch version;
 on a CUDA tensor it launches the kernel or raises. The package never imports
 ``jax``; it reuses only the reference package's jax-free modules
-(``utils/config.py``, ``utils/calibration.py``, ``utils/labels.py``,
-``serve/camera.py`` and ``native/``).
+(``utils/{config,calibration,labels,metrics,imageio}.py``,
+``features/dataset.py``, ``serve/camera.py`` and ``native/``).
 
-The map path's dense CRF (``models/lattice.py``, ``models/crf.py``) is
-plain PyTorch, like its JAX counterpart, which has no Pallas kernel.
+The dense CRF (``models/lattice.py``, ``models/crf.py``,
+``models/crf2d_device.py``) is plain PyTorch, like its JAX counterpart,
+which has no Pallas kernel. Beside the online node (``cli/node.py``) the
+port has the offline entry points: the streaming step
+(``pipelines/streaming.py``), the evaluation CLIs (``cli/test.py``,
+``cli/test_multi.py``) and the 2D CRF demo (``cli/dense_inference.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """Z-buffered projection of map point clouds into keyframe camera images.
 
 Counterpart of ``rovinasemanticsegmentation_tpu/fusion/projector.py``
-(``_project_pixels``, ``project_winners``, ``MultiProjector``), the
+(``_project_pixels``, ``project_zbuffer``, ``project_winners``,
+``MultiProjector``), the
 equivalent of fps_mapper's ``MultiProjector::project`` at
 ``segmenter.cpp:578``: each map point lands on one pixel of each camera of
 the vertically stacked multi-camera image, and per pixel the nearest point
@@ -26,17 +27,18 @@ _BIG = 3.0e38
 
 
 def _apply_3x3(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``m [C, 3, 3]`` applied to ``v [C or 1, N, 3]`` -> [C, N, 3], float32
-    multiply-adds (no TF32 path)."""
-    return torch.stack(
-        [
-            v[..., 0] * m[:, i, 0, None]
-            + v[..., 1] * m[:, i, 1, None]
-            + v[..., 2] * m[:, i, 2, None]
-            for i in range(3)
-        ],
-        dim=-1,
-    )
+    """``m [C, 3, 3]`` applied to ``v [C or 1, N, 3]`` -> [C, N, 3].
+
+    Each output is the fused multiply-add chain that XLA's CPU dot emits
+    for one camera (``x0 m0``, then ``+ x1 m1`` and ``+ x2 m2`` each
+    rounded once: the float64 product of two float32 numbers is exact), so
+    pixels and depths equal the JAX package's; no TF32 path.
+    """
+    vd = v.double()[..., None, :]  # [C or 1, N, 1, 3]
+    md = m.double()[:, None]  # [C, 1, 3, 3]
+    acc = v[..., None, 0] * m[:, None, :, 0]  # [C, N, 3]
+    acc = (vd[..., 1] * md[..., 1] + acc.double()).float()
+    return (vd[..., 2] * md[..., 2] + acc.double()).float()
 
 
 def project_pixels(
@@ -78,6 +80,50 @@ def project_pixels(
     return flat.reshape(-1), zf.reshape(-1)
 
 
+def _zbuffer(
+    flat: torch.Tensor, zf: torch.Tensor, keys: torch.Tensor, npix: int,
+    absent: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two ``amin`` passes -> (zbuf [npix+1], owner [npix+1]).
+
+    ``zbuf`` holds each pixel's least depth; ``owner`` the least ``key``
+    among the pixel's points at that depth, ``absent`` where none. Slot
+    ``npix`` collects the invalid pairs and is cut off by the callers.
+    """
+    dev = flat.device
+    zbuf = torch.full((npix + 1,), _BIG, dtype=torch.float32, device=dev)
+    zbuf = zbuf.scatter_reduce(0, flat, zf, reduce="amin")
+    nearest = zbuf[flat] == zf
+    owner = torch.full((npix + 1,), absent, dtype=torch.int64, device=dev)
+    owner = owner.scatter_reduce(
+        0, torch.where(nearest, flat, torch.full_like(flat, npix)), keys,
+        reduce="amin",
+    )
+    return zbuf, owner
+
+
+def project_zbuffer(
+    points, rotation_inv, translation_inv, intrinsics, min_distance,
+    max_distance, height: int, width: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (zbuffer [C3*H, W] float32, inf where empty; index image
+    [C3*H, W] int32, the winning point per pixel or -1)."""
+    ncam = rotation_inv.shape[0]
+    n = points.shape[0]
+    npix = ncam * height * width
+    flat, zf = project_pixels(
+        points, rotation_inv, translation_inv, intrinsics,
+        min_distance, max_distance, height, width,
+    )
+    ids = torch.arange(n, device=points.device).repeat(ncam)
+    zbuf, owner = _zbuffer(flat, zf, ids, npix, n)
+    index_image = owner[:-1].reshape(ncam * height, width)
+    index_image = torch.where(index_image == n, -1, index_image).to(torch.int32)
+    zbuffer = zbuf[:-1].reshape(ncam * height, width)
+    zbuffer = torch.where(index_image < 0, torch.inf, zbuffer)
+    return zbuffer, index_image
+
+
 def project_winners(
     points, rotation_inv, translation_inv, intrinsics, min_distance,
     max_distance, height: int, width: int,
@@ -94,16 +140,8 @@ def project_winners(
         min_distance, max_distance, height, width,
     )
     npix = rotation_inv.shape[0] * height * width
-    dev = points.device
-    zbuf = torch.full((npix + 1,), _BIG, dtype=torch.float32, device=dev)
-    zbuf = zbuf.scatter_reduce(0, flat, zf, reduce="amin")
-    nearest = zbuf[flat] == zf
-    slot = torch.arange(flat.shape[0], device=dev)
-    owner = torch.full((npix + 1,), flat.shape[0], dtype=torch.int64, device=dev)
-    owner = owner.scatter_reduce(
-        0, torch.where(nearest, flat, torch.full_like(flat, npix)), slot,
-        reduce="amin",
-    )
+    slot = torch.arange(flat.shape[0], device=points.device)
+    _, owner = _zbuffer(flat, zf, slot, npix, flat.shape[0])
     won = (owner[flat] == slot) & (flat < npix)
     return won, flat
 
@@ -158,3 +196,17 @@ class MultiProjector:
             np.einsum("cij,j->ci", self.rotations_inv, tp) + self.translations_inv
         )
         return rot.astype(np.float32), trans.astype(np.float32)
+
+    def project(self, points, pose: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(zbuffer, index image) of the cloud seen from keyframe ``pose``
+        (:func:`project_zbuffer`), on the device of ``points`` (a tensor, or
+        a host array for the CPU)."""
+        points = torch.as_tensor(points, dtype=torch.float32)
+        dev = points.device
+        rot, trans = self.camera_transforms(pose)
+        return project_zbuffer(
+            points, torch.from_numpy(rot).to(dev),
+            torch.from_numpy(trans).to(dev),
+            torch.from_numpy(self.intrinsics).to(dev),
+            self.min_distance, self.max_distance, self.height, self.width,
+        )

@@ -16,7 +16,9 @@ same lattice:
 The filter (:func:`lattice_filter_t`) works in the transposed ``[C, N]``
 layout on the build's sorted splat stream: the splat is a float32 prefix sum
 with per-vertex range differences, so no float atomics decide its summation
-order and a GPU gives the same sums on every run.
+order and a GPU gives the same sums on every run. The points-major
+:func:`lattice_filter` of the JAX package (a scatter-add splat) is its
+``[N, C]`` face: the port keeps one filter.
 
 Semantics kept from the reference: elevation with
 ``scale[i] = inv_std_dev / sqrt((i+1)(i+2))``; nearest-remainder rounding and
@@ -509,18 +511,25 @@ def segment_sum_sorted_t(
     starts: torch.Tensor,  # [M] first row of each segment
     ends: torch.Tensor,  # [M] one past the last row
 ) -> torch.Tensor:  # [C, M]
-    """Per-segment sums over a sorted stream: a two-level float32 prefix
-    (cumsum within rows of 128, plus the exclusive prefix of row totals),
-    then range differences. Deterministic: no atomics."""
+    """Per-segment sums over a sorted stream, in the input's dtype: a
+    two-level prefix (cumsum within rows of 128, plus the exclusive prefix
+    of row totals; both short scans, so both parallel), then range
+    differences. Deterministic: no atomics.
+
+    The prefix runs in float64. A float32 prefix grows with the stream, and
+    its rounding (an ulp of the running total) swamps the sums of small
+    segments: on a 64x80 image's bilateral lattice, where most vertices
+    hold one point, mean-field marginals moved by up to 1.8e-2.
+    """
     c, s = contrib.shape
     spad = -(-s // 128) * 128
-    x = F.pad(contrib, (0, spad - s)).reshape(c, spad // 128, 128)
+    x = F.pad(contrib.double(), (0, spad - s)).reshape(c, spad // 128, 128)
     within = torch.cumsum(x, dim=2)
     rowtot = within[:, :, -1]
     carry = torch.cumsum(rowtot, dim=1) - rowtot
     prefix = (within + carry[:, :, None]).reshape(c, spad)[:, :s]
     prefix = torch.cat([prefix.new_zeros((c, 1)), prefix], dim=1)
-    return prefix[:, ends] - prefix[:, starts]
+    return (prefix[:, ends] - prefix[:, starts]).to(contrib.dtype)
 
 
 def lattice_filter_t(
@@ -556,3 +565,35 @@ def lattice_filter_t(
         verts = torch.cat([blurred, zero], dim=1)
     gathered = verts[:, offsets_t]  # [C, d+1, N]
     return (gathered * barycentric_t).sum(dim=1) * alpha
+
+
+def lattice_filter(
+    values: torch.Tensor,  # [N, C]
+    sorted_points: torch.Tensor,
+    sorted_weights: torch.Tensor,
+    seg_starts: torch.Tensor,
+    seg_ends: torch.Tensor,
+    offsets_t: torch.Tensor,
+    barycentric_t: torch.Tensor,
+    blur_n1: torch.Tensor,
+    blur_n2: torch.Tensor,
+    num_vertices: int,
+    reverse: bool = False,
+) -> torch.Tensor:  # [N, C]
+    """Points-major splat -> blur -> slice: :func:`lattice_filter_t` on the
+    transposed values, on the lattice's sorted stream (the eight tensors of
+    :func:`lattice_tensors` or :func:`build_lattice_device`)."""
+    return lattice_filter_t(
+        values.T, sorted_points, sorted_weights, seg_starts, seg_ends,
+        offsets_t, barycentric_t, blur_n1, blur_n2, num_vertices, reverse,
+    ).T
+
+
+def filter_ones_norm(lattice: PermutohedralLattice) -> np.ndarray:
+    """The normalisation vector, the filter of all-ones (pairwise.cpp:44),
+    of a host lattice, computed on the CPU."""
+    lattice = attach_sorted_stream(lattice)
+    ones = torch.ones((lattice.offsets.shape[0], 1), dtype=torch.float32)
+    out = lattice_filter(ones, *lattice_tensors(lattice, torch.device("cpu")),
+                         lattice.num_vertices)
+    return out[:, 0].numpy()

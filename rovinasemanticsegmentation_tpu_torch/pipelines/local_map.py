@@ -29,7 +29,7 @@ import torch
 
 from ..device import resolve_device
 from ..fusion.projector import MultiProjector, project_winners
-from ..models.crf import potts_mean_field_multi_t
+from ..models.crf import potts_mean_field, potts_mean_field_multi_t
 from ..models.lattice import (
     attach_sorted_stream,
     build_lattice,
@@ -59,7 +59,9 @@ class MapNodeFrames:
     frame's segmentation is missing (tolerated, segmenter.cpp:618-621).
     """
 
-    pose: np.ndarray  # [4, 4] keyframe transform
+    # [4, 4] keyframe transform, or its [C3, 3, 4] world -> camera pack
+    # (``pipelines/streaming.py::pack_poses``)
+    pose: np.ndarray
     posteriors: List[Optional[List[torch.Tensor]]]
 
 
@@ -74,6 +76,39 @@ def plain_labels(unaries: torch.Tensor, unknown_label: int) -> torch.Tensor:
 def crf_feats(points, rgb, xyz_kernel: float, rgb_kernel: float) -> torch.Tensor:
     """CRF pairwise features [xyz * 0.5 ; rgb * 4.0] (segmenter.cpp:629-637)."""
     return torch.cat([points * xyz_kernel, rgb * rgb_kernel], dim=1)
+
+
+def _floor_labels(
+    q_t: torch.Tensor,  # [C, N] one layer's marginals
+    class_count: int,
+    unknown_label: int,
+    overflow: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Argmax with the 2/C confidence floor, Unknown below it
+    (segmenter.cpp:645-657); ``overflow`` makes every label Unknown."""
+    floor = torch.tensor(2.0 / class_count, dtype=torch.float32)
+    lbl = torch.where(q_t.amax(dim=0) > floor, q_t.argmax(dim=0), unknown_label)
+    if overflow is not None:
+        lbl = torch.where(overflow, unknown_label, lbl)
+    return lbl.to(torch.int32)
+
+
+def _crf_labels(
+    unaries: torch.Tensor,  # [N, C] accumulated log-posterior sums
+    lattice: Sequence[torch.Tensor],  # the 8 tensors of build_lattice_device
+    norm: torch.Tensor,  # [N] symmetric-normalisation vector
+    weight: float,
+    num_vertices: int,
+    n_iterations: int,
+    class_count: int,
+    unknown_label: int,
+) -> torch.Tensor:
+    """One layer's int32 labels, points-major: the mean field on the energy
+    ``-unaries`` (``setUnaryEnergy``, segmenter.cpp:642), then the 2/C
+    floor."""
+    q = potts_mean_field(-unaries, *lattice, norm, weight, num_vertices,
+                         n_iterations)
+    return _floor_labels(q.T, class_count, unknown_label)
 
 
 def crf_labels_multi(
@@ -100,14 +135,11 @@ def crf_labels_multi(
     q = potts_mean_field_multi_t(
         -unaries.T, *lattice, norm, weight, blocks, num_vertices, n_iterations
     )
-    out = []
-    for ql, c, unk in zip(torch.split(q, list(blocks)), blocks, unknown_labels):
-        floor = torch.tensor(2.0 / c, dtype=torch.float32)
-        lbl = torch.where(ql.amax(dim=0) > floor, ql.argmax(dim=0), unk)
-        if overflow is not None:
-            lbl = torch.where(overflow, unk, lbl)
-        out.append(lbl.to(torch.int32))
-    return out
+    return [
+        _floor_labels(ql, c, unk, overflow)
+        for ql, c, unk in zip(torch.split(q, list(blocks)), blocks,
+                              unknown_labels)
+    ]
 
 
 class _VertexCountProbe:
@@ -168,6 +200,16 @@ class LocalMapPipeline:
         self._m_checked = set()  # cloud sizes whose bucket was validated
         self._pending_m: List[_VertexCountProbe] = []
 
+    def _node_transforms(self, pose):
+        """World -> camera (rotation [C3, 3, 3], translation [C3, 3]) on the
+        device, from a 4x4 keyframe pose or a [C3, 3, 4] pack."""
+        if tuple(np.shape(pose)) == (4, 4):
+            rot, trans = self.projector.camera_transforms(np.asarray(pose))
+            return (torch.from_numpy(rot).to(self.device),
+                    torch.from_numpy(trans).to(self.device))
+        pack = torch.as_tensor(pose, dtype=torch.float32, device=self.device)
+        return pack[..., :3], pack[..., 3]
+
     def fuse_unaries(
         self, cloud_points, nodes: Sequence[MapNodeFrames]
     ) -> List[torch.Tensor]:
@@ -187,10 +229,9 @@ class LocalMapPipeline:
             ]
             if all(layers is None for layers in cams):
                 continue  # zero posteriors add nothing
-            rot, trans = proj.camera_transforms(node.pose)
+            rot, trans = self._node_transforms(node.pose)
             won, flat = project_winners(
-                points, torch.from_numpy(rot).to(dev),
-                torch.from_numpy(trans).to(dev), self._intrinsics,
+                points, rot, trans, self._intrinsics,
                 proj.min_distance, proj.max_distance, proj.height, proj.width,
             )
             post = torch.cat(

@@ -1,0 +1,122 @@
+"""The streaming step: a keyframe batch and the local maps it feeds.
+
+Counterpart of ``rovinasemanticsegmentation_tpu/pipelines/streaming.py``,
+the throughput path (batch and offline serving). One call runs the frame
+batch (features -> forest descent -> posteriors -> labels: kernels A and B
+on a GPU) and then every local map of that batch (fusion -> device lattice
+build -> fused multi-layer CRF -> labels), with each map's keyframe
+posteriors handed over in device memory. The JAX package fused both into
+one jitted graph to save TPU dispatches; here the step is the two
+pipelines' own calls in a row, issued without a host synchronisation.
+
+The reference runs a frame worker and a map worker in two threads
+(``segmenter.cpp:227-232``); the online node (``serve/segmenter.py``) keeps
+that design for its per-keyframe latency.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .local_map import LocalMapPipeline, MapNodeFrames, _VertexCountProbe
+from .single_frame import SingleFramePipeline
+
+
+def pack_poses(projector, poses: Sequence[np.ndarray]) -> np.ndarray:
+    """[K, C3, 3, 4] world -> camera ``rot_inv | t_inv`` packs of keyframe
+    ``poses`` (segmenter.cpp:561-571), the math of
+    ``MultiProjector.camera_transforms``."""
+    rot_all, t_all = [], []
+    for pose in poses:
+        pose = np.asarray(pose, np.float32)
+        rp = pose[:3, :3].T
+        tp = -rp @ pose[:3, 3]
+        rot_all.append(projector.rotations_inv @ rp[None])
+        t_all.append(
+            np.einsum("cij,j->ci", projector.rotations_inv, tp)
+            + projector.translations_inv
+        )
+    return np.concatenate(
+        [np.stack(rot_all), np.stack(t_all)[..., None]], axis=-1
+    ).astype(np.float32)
+
+
+class StreamingPipeline:
+    """Drive a frame batch and its maps with the two pipelines' configs.
+
+    ``map_pipeline`` must have a validated vertex bucket for the cloud size
+    (run one map through ``run_device`` first). Maps here run without a
+    synchronisation; their vertex counts go to the map pipeline's
+    non-blocking overflow drain (an overflowing map is labelled all Unknown
+    on the device, and the bucket grows for the following maps).
+    """
+
+    def __init__(
+        self,
+        frame_pipeline: SingleFramePipeline,
+        map_pipeline: LocalMapPipeline,
+        map_every: int,
+    ):
+        if not map_pipeline.crf.use_dense_crf:
+            raise ValueError("streaming fuses the dense-CRF map path")
+        if not map_pipeline.use_device_lattice:
+            raise ValueError("streaming builds the lattice on the device")
+        if frame_pipeline.device != map_pipeline.device:
+            raise ValueError(
+                f"frame pipeline on {frame_pipeline.device}, map pipeline on "
+                f"{map_pipeline.device}"
+            )
+        self.frames = frame_pipeline
+        self.maps = map_pipeline
+        self.map_every = int(map_every)
+
+    def run_staged(
+        self,
+        rgb_stack,  # [B, H, W, 3] (device-resident preferred)
+        depth_stack,  # [B, H, W]
+        kinv, rot, trans,  # [B, 3, 3] x2, [B, 3]
+        clouds,  # [Mb, N, 3] with Mb = B // map_every
+        cloud_rgb,  # [N, 3] or [Mb, N, 3]
+        pose_packed,  # [Mb, K, C3, 3, 4] (see :func:`pack_poses`)
+    ) -> Tuple[List[List[torch.Tensor]], List[List[torch.Tensor]]]:
+        """Returns (frame labels per frame per layer, map labels per map per
+        layer), all on the device and not synchronised."""
+        fp, mp = self.frames, self.maps
+        dev = mp.device
+        b = int(rgb_stack.shape[0])
+        n = int(clouds.shape[1])
+        maps_per_batch = b // self.map_every
+        if maps_per_batch != int(clouds.shape[0]):
+            raise ValueError(
+                f"{int(clouds.shape[0])} clouds for {maps_per_batch} maps"
+            )
+        if n not in mp._m_checked:
+            raise ValueError(
+                f"vertex bucket not validated for cloud size {n}; run one "
+                "map through LocalMapPipeline first"
+            )
+        mp._drain_overflow_flags()
+        results = fp.run_batch_stacked(rgb_stack, depth_stack, kinv, rot, trans)
+        clouds = torch.as_tensor(clouds, dtype=torch.float32, device=dev)
+        cloud_rgb = torch.as_tensor(cloud_rgb, dtype=torch.float32, device=dev)
+        pose_packed = torch.as_tensor(pose_packed, dtype=torch.float32,
+                                      device=dev)
+        map_labels = []
+        for m in range(maps_per_batch):
+            # One camera: each node's posteriors are its keyframe's, still
+            # on the device.
+            nodes = [
+                MapNodeFrames(pose=pose_packed[m, k],
+                              posteriors=[results[m * self.map_every + k].posteriors])
+                for k in range(self.map_every)
+            ]
+            labels, count = mp.map_fused(
+                clouds[m], cloud_rgb[m] if cloud_rgb.ndim == 3 else cloud_rgb,
+                nodes, mp._m_bucket,
+            )
+            map_labels.append(labels)
+            mp._pending_m.append(_VertexCountProbe(mp._m_bucket, count))
+        return [r.labels for r in results], map_labels

@@ -1,5 +1,6 @@
-"""The CUDA kernels against their plain PyTorch versions, and the dense
-CRF's lattice build and mean field against the CPU's, on the card.
+"""The CUDA kernels against their plain PyTorch versions, the dense CRF's
+lattice build and mean field against the CPU's, and the run-to-run
+equality of the unary accumulation and of ``DenseCRF.map``, on the card.
 
 Marked ``cuda``: each test skips when ``torch.cuda.is_available()`` is
 false. On a machine with an NVIDIA GPU (which need not have JAX; the
@@ -14,7 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from rovinasemanticsegmentation_tpu_torch.fusion.unaries import (
+    accumulate_unaries,
+)
 from rovinasemanticsegmentation_tpu_torch.models.crf import (
+    DenseCRF2D,
+    PottsCompatibility,
     potts_mean_field_multi_t,
 )
 from rovinasemanticsegmentation_tpu_torch.models.forest import (
@@ -240,3 +246,43 @@ def test_mean_field_on_card_within_contract(dev):
     want = marginals("cpu")
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_accumulate_unaries_same_on_every_run(dev):
+    """About 4800 pixels on each point: a scatter-add with float atomics
+    would sum them in another order on each run."""
+    rng = np.random.default_rng(5)
+    h, w, c, n = 480, 640, 17, 64
+    post = torch.from_numpy(rng.uniform(-5.0, 0.0, (h, w, c)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-1, n, (h, w)).astype(np.int32))
+    start = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32))
+    runs = [accumulate_unaries(start.to(dev), post.to(dev), idx.to(dev), n)
+            for _ in range(3)]
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    torch.testing.assert_close(runs[0].cpu(),
+                               accumulate_unaries(start, post, idx, n),
+                               rtol=1e-6, atol=1e-5)
+
+
+def test_dense_crf_map_same_on_every_run(dev):
+    rng = np.random.default_rng(6)
+    w, h, m = 80, 64, 6
+    rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    unary = rng.normal(size=(w * h, m)).astype(np.float32)
+
+    def crf(device):
+        c = DenseCRF2D(w, h, m, device)
+        c.set_unary_energy(unary)
+        c.add_pairwise_gaussian(3, 3, PottsCompatibility(3))
+        c.add_pairwise_bilateral(20, 20, 13, 13, 13, rgb, PottsCompatibility(10))
+        return c
+
+    on_card = crf(dev)
+    labels = [on_card.map(5) for _ in range(3)]
+    for lbl in labels[1:]:
+        np.testing.assert_array_equal(lbl, labels[0])
+    q = [on_card.inference(5) for _ in range(2)]
+    assert q[0].device.type == "cuda" and torch.equal(q[0], q[1])
+    torch.testing.assert_close(q[0].cpu(), crf("cpu").inference(5),
+                               rtol=2e-4, atol=2e-5)

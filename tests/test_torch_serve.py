@@ -198,6 +198,8 @@ def test_port_imports_without_jax():
     assert {pkg + m for m in (
         "ops.forest_staged_cuda", "ops.patches_planar_cuda",
         "scripts.exp_descent", "scripts.exp_patches",
+        "fusion.unaries", "models.crf2d_device", "pipelines.streaming",
+        "cli.evaluate", "cli.test", "cli.test_multi", "cli.dense_inference",
     )} <= names
 
 
