@@ -8,19 +8,38 @@ Phases, each of which raises on failure (exit code 1, no result line):
 
 1. device: require CUDA, print the card's name and power limit, build the
    kernels from ``rovinasemanticsegmentation_tpu_torch/csrc`` with nvcc;
-2. kernel A (patches) against its plain PyTorch version on the card:
-   bit-exact at VGA / stride 2 on piecewise-smooth depth with 2% holes, and
-   on a 240x320 frame at strides 1 and 5;
+2. kernel A (patches) and its ``pack_lab`` against their plain PyTorch
+   versions on the card: bit-exact at VGA / stride 2 on piecewise-smooth
+   depth with 2% holes, and on a 240x320 frame at strides 1 and 5, in both
+   output strides: 363-byte rows (the ``[gh, gw, R, R, 3]`` tensor) and
+   384-byte packed feature rows (``ops/feature_rows.py``) from a nonzero
+   batch row, the rows around the frame's block untouched;
 2b. kernel D' (separable patches on planar channels) on the same inputs:
    bit-exact with kernel A, ``extract_patches_plain`` and its own plain
    version ``extract_patches_separable_plain``;
 3. kernel B (forest descent + leaf-histogram sum) against its plain version
-   on phase 2's VGA features with the trained fixture forest: equal leaf ids
-   and equal posteriors;
-3b. kernel C' (descent over a staged feature tile) on the same features
+   with the trained fixture forest, on phase 2's frame and on a batch of 8
+   VGA keyframes (the serving path's shape), each as float32 rows and as
+   packed rows: equal leaf ids and equal posteriors; the frame's packed rows
+   unpack to its float features bit for bit;
+3b. kernel C' (descent over a staged feature tile) on the frame's features
    after the usage permutation, at hot = 128 and 366: leaf ids equal to B's
    and to the plain descent's, and the posteriors summed from them equal to
    B's;
+3c. one ``torch.profiler`` window over ``run_batch_stacked`` on 8 VGA
+   keyframes, in a process of its own (``scripts/profile_frames.py``):
+   device time per keyframe, the top kernels and the port's kernels; kernels
+   A and B must run, and no float32 ``cat``, ``where`` or ``to`` over
+   ``[P, 363]`` or ``[P, 366]`` features may run;
+
+Phases 2-3b time each kernel's launch alone (CUDA events around launches
+whose inputs were prepared first, queued behind a spin kernel so that the
+card's time is measured and not the host's) beside its wrapper, and compute
+its bound from this run's inputs: the larger of the bytes it must move
+(each input read once, each output written once; for a descent, the
+features, node records and leaf histograms that this data's paths read)
+over 3.35 TB/s and its 32-bit instructions on the busiest issue pipe (FMA
+or ALU) over that pipe's rate.
 4. serving: the port's ``Segmenter`` at full width (patch 77 -> 11, stride
    2, 366 features, 8 + 9 classes, dense CRF on with 10 mean-field
    iterations, the configuration of ``bench.py``) behind its HTTP services
@@ -73,6 +92,7 @@ import io
 import json
 import os
 import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -138,30 +158,6 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def make_depth(rng, h, w):
-    """Piecewise-smooth indoor-style depth in mm with 2% sensor holes."""
-    ys, xs = np.mgrid[0:h, 0:w]
-    depth = (
-        3000.0
-        + 1500.0 * np.sin(xs / w * np.pi * rng.uniform(0.5, 2.0))
-        + 1000.0 * (ys / h) * rng.uniform(0.5, 3.0)
-    )
-    for _ in range(6):  # furniture-like fronto-parallel boxes
-        y0, x0 = rng.integers(0, h - h // 6), rng.integers(0, w - w // 5)
-        bh, bw = rng.integers(h // 8, h // 3), rng.integers(w // 8, w // 3)
-        depth[y0 : y0 + bh, x0 : x0 + bw] = rng.uniform(700, 2500)
-    depth += rng.normal(0, 15, (h, w))
-    depth[rng.random((h, w)) < 0.02] = 0
-    return np.clip(depth, 0, 15500).astype(np.uint16)
-
-
-def make_frames(rng, n, h=H, w=W):
-    return [
-        (rng.integers(0, 256, (h, w, 3), dtype=np.uint8), make_depth(rng, h, w))
-        for _ in range(n)
-    ]
-
-
 def make_cloud(rng, frames, first):
     """Backprojected surface points of ``MAP_EVERY`` keyframes, world frame."""
     fx = fy = 525.0
@@ -209,8 +205,8 @@ def write_eval_dataset(root, rng, frames, calib):
     """A dataset in the reference layout (as tests/test_cli.py builds it)
     from VGA ``frames``, with ground truth from depth bands, and its
     config -> config path. The fixture forest is the shared model."""
-    from rovinasemanticsegmentation_tpu.utils.imageio import save_color
-    from rovinasemanticsegmentation_tpu.utils.labels import RgbLabelConversion
+    from rovinasemanticsegmentation_tpu_torch.utils.imageio import save_color
+    from rovinasemanticsegmentation_tpu_torch.utils.labels import RgbLabelConversion
 
     for sub in ("rgb", "depth", "mat_labels", "obj_labels", "calibration",
                 "splits", "models"):
@@ -275,6 +271,127 @@ def time_cuda(fn, reps, warmup=2) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Card clock cycles to spin per timed launch, about 100 us at 1.98 GHz: several
+# times what the host takes to issue one launch through its wrapper.
+SPIN_CYCLES_PER_LAUNCH = 200_000
+
+
+def time_launch(launch, reps, warmup=2) -> float:
+    """Mean device ms per kernel launch. The launches are queued behind a
+    spin kernel, so the CUDA events time the card running them back to back
+    and not the host issuing them, which is slower than a kernel of a few
+    microseconds."""
+    import torch
+
+    for _ in range(warmup):
+        launch()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES_PER_LAUNCH * reps)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# H100 SXM data sheet (700 W): device memory at 3.35 TB/s. Integer work is
+# counted as 32-bit instructions per issue pipe: the FMA pipe (IMUL, IMAD)
+# and the ALU pipe (shifts, logic, compares, IADD3) each issue 64 per SM per
+# clock and run at the same time (the CUDA programming guide's throughput
+# table for compute capability 9.0), 132 SMs at the 1.98 GHz boost clock of
+# the data sheet's float32 peak of 67 TFLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+PIPE_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit instructions per output byte of a bilinear 8U resample, by pipe:
+# four multiplies and two multiply-adds with the rounding term, one shift.
+RESAMPLE_OPS = {"fma": 6, "alu": 1}
+# Per descent level: field shift and mask, the compare, the child add.
+LEVEL_OPS = {"alu": 4}
+# Per pixel of the Lab pack: two shifts and two ors.
+PACK_OPS = {"alu": 4}
+
+
+def bound(nbytes: float, ops: dict, count: int) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the busiest pipe's instructions (``ops`` per unit times
+    ``count`` units) over its rate."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    pipe_ops = max(ops.values()) * count
+    by_ops = 1e3 * pipe_ops / PIPE_OPS_PER_S
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bound_bytes=int(nbytes), bound_ops=int(pipe_ops))
+
+
+def descent_reads(feats, forest):
+    """What the descent must read on ``feats``, from the plain descent on
+    the card: a [P, D] mask of the (point, feature) pairs it compares, the
+    number of distinct (tree, node) records it loads, the distinct (tree,
+    leaf) histograms it sums, its levels, and its leaf ids."""
+    import torch
+
+    records = forest.records
+    num_trees, n_nodes, _ = records.shape
+    p, d = feats.shape
+    dev = feats.device
+    fmask = (1 << forest.feat_bits) - 1
+    trees = torch.arange(num_trees, device=dev)[None, :]
+    points = torch.arange(p, device=dev)[:, None].expand(p, num_trees)
+    node = torch.zeros((p, num_trees), dtype=torch.int64, device=dev)
+    touched = torch.zeros((p, d), dtype=torch.bool, device=dev)
+    visited = torch.zeros((num_trees, n_nodes), dtype=torch.bool, device=dev)
+    levels = 0
+    for _ in range(forest.max_depth):
+        meta = records[..., 0][trees, node]
+        visited[trees.expand(p, num_trees), node] = True
+        left = meta >> forest.feat_bits
+        active = left != 0
+        n_active = int(active.sum())
+        if n_active == 0:
+            break
+        levels += n_active
+        f = (meta & fmask).long()
+        touched[points[active], f[active]] = True
+        x = feats[points, f]
+        thr = records[..., 1].view(torch.float32)[trees, node]
+        node = torch.where(active, left.long() + (x >= thr).long(), node)
+    reached = torch.zeros_like(visited)
+    reached[trees.expand(p, num_trees), node] = True
+    return dict(touched=touched, records=int(visited.sum()),
+                leaves=int(reached.sum()), levels=levels,
+                leaf_ids=node.to(torch.int32))
+
+
+def descent_bound(reads, forest, layout, with_histograms=True) -> dict:
+    """Kernel B's (or C''s, without histograms) bound on rows in ``layout``:
+    each compared feature once (a patch byte, or 4 bytes), each loaded node
+    record (8 B) and summed leaf histogram once, the outputs once."""
+    touched = reads["touched"]
+    p, d = touched.shape
+    pc = layout.patch_bytes
+    feature_bytes = (int(touched[:, :pc].sum())
+                     + 4 * int(touched[:, pc:].sum()))
+    num_trees, _, num_layers, c_max = forest.leaf_hist.shape
+    nbytes = feature_bytes + 8 * reads["records"] + 4 * p * num_trees
+    if with_histograms:
+        lc = num_layers * c_max
+        nbytes += 4 * lc * reads["leaves"] + 4 * p * lc
+    return dict(bound(nbytes, LEVEL_OPS, reads["levels"]),
+                feature_bytes=feature_bytes)
+
+
+def resample_bound(image_bytes, depth_grid, patch_bytes, row_bytes) -> dict:
+    """Kernel A's (and D''s) bound: the image and depth grid read once,
+    every output row written once, ``RESAMPLE_OPS`` per patch byte of a
+    point with depth."""
+    points = depth_grid.numel()
+    valid = int((depth_grid > 0).sum())
+    nbytes = image_bytes + 4 * points + row_bytes * points
+    return bound(nbytes, RESAMPLE_OPS, patch_bytes * valid)
+
+
 def http_json(url, body=None):
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(url, data=data,
@@ -286,13 +403,15 @@ def http_json(url, body=None):
 def run(card: str) -> dict:
     import torch
 
-    from rovinasemanticsegmentation_tpu.utils.calibration import Calibration
-    from rovinasemanticsegmentation_tpu.utils.config import Config
+    from rovinasemanticsegmentation_tpu_torch.utils.calibration import Calibration
+    from rovinasemanticsegmentation_tpu_torch.utils.config import Config
     from rovinasemanticsegmentation_tpu_torch.csrc.build import load_kernels
     from rovinasemanticsegmentation_tpu_torch.device import resolve_device
     from rovinasemanticsegmentation_tpu_torch.features.extractor import (
         FeatureConfig,
+        extract_feature_rows,
         extract_features,
+        feature_row_layout,
         patch_inputs,
     )
     from rovinasemanticsegmentation_tpu_torch.fusion.projector import (
@@ -310,6 +429,10 @@ def run(card: str) -> dict:
         usage_permutation,
     )
     from rovinasemanticsegmentation_tpu_torch.ops import forest_cuda
+    from rovinasemanticsegmentation_tpu_torch.ops.feature_rows import (
+        RowLayout,
+        unpack_rows,
+    )
     from rovinasemanticsegmentation_tpu_torch.ops import forest_staged_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import patches_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import patches_planar_cuda
@@ -344,10 +467,15 @@ def run(card: str) -> dict:
         exp_descent,
         exp_patches,
     )
+    from rovinasemanticsegmentation_tpu_torch.scripts.profile_frames import (
+        FRAME_SEED,
+        FRAMES,
+        make_frames,
+    )
     from rovinasemanticsegmentation_tpu_torch.serve.services import (
         SegmentationServiceServer,
     )
-    from rovinasemanticsegmentation_tpu.utils.imageio import save_ppm
+    from rovinasemanticsegmentation_tpu_torch.utils.imageio import save_ppm
     from rovinasemanticsegmentation_tpu_torch.cli import dense_inference
     from rovinasemanticsegmentation_tpu_torch.cli import (
         test_multi as cli_test_multi,
@@ -360,8 +488,9 @@ def run(card: str) -> dict:
         pack_poses,
     )
 
-    counters = (patches_cuda.launches, forest_cuda.launches,
-                forest_staged_cuda.launches, patches_planar_cuda.launches)
+    counters = (patches_cuda.launches, patches_cuda.pack_launches,
+                forest_cuda.launches, forest_staged_cuda.launches,
+                patches_planar_cuda.launches)
 
     def reset_counts():
         for counter in counters:
@@ -374,7 +503,7 @@ def run(card: str) -> dict:
     build_s = time.perf_counter() - t0
     print(f"phase 1: kernels built and loaded in {build_s:.3f} s ({card})")
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(FRAME_SEED)
     cfg = FeatureConfig()
     calib = Calibration(
         intrinsic=np.array([[525.0, 0, W / 2], [0, 525.0, H / 2], [0, 0, 1]]),
@@ -387,25 +516,89 @@ def run(card: str) -> dict:
         return (torch.from_numpy(rgb).to(dev),
                 torch.from_numpy(depth.astype(np.int32)).to(dev))
 
-    # ---- phase 2: kernel A vs plain
+    # ---- phase 2: kernel A (and its pack_lab) vs plain, in both strides
     results = {}
+    layout = feature_row_layout(cfg)
+    pc = layout.patch_bytes
     rgb_t, depth_t = frame_tensors(*frames[0])
     padded, dgrid = patch_inputs(rgb_t, depth_t, cfg, STRIDE)
+    p0 = dgrid.numel()
+    hp, wp, _ = padded.shape
+    packed_img = patches_cuda.pack_lab(padded)
+    torch.cuda.synchronize()
+    check(torch.equal(packed_img, patches_cuda.pack_lab_plain(padded)),
+          "pack_lab differs from its plain version")
+    ms_pack = time_launch(patches_cuda.pack_launcher(padded)[0], 50)
+    wrapper_ms_pack = time_cuda(lambda: patches_cuda.pack_lab(padded), 50)
+    plain_ms_pack = time_cuda(lambda: patches_cuda.pack_lab_plain(padded), 20)
+    results["pack_lab"] = dict(max_abs_err=0, ms=ms_pack,
+                               wrapper_ms=wrapper_ms_pack,
+                               plain_ms=plain_ms_pack,
+                               **bound(7 * hp * wp, PACK_OPS, hp * wp))
     got = patches_cuda.extract_patches(padded, dgrid, 77, 11, STRIDE)
     want = extract_patches_plain(padded, dgrid, 77, 11, STRIDE)
     torch.cuda.synchronize()
     check(torch.equal(got, want), "kernel A differs from its plain version "
           "at VGA stride 2")
     err_a = int((got.int() - want.int()).abs().max())
-    ms_a = time_cuda(
+
+    def check_packed_a(lab, grid, s, row0):
+        """Kernel A into packed rows from ``row0`` == its plain version, and
+        the rows around the frame's block untouched."""
+        n = grid.numel()
+        buf = torch.full((row0 + n + 5, layout.row_bytes), 0xAB,
+                         dtype=torch.uint8, device=dev)
+        ref = buf.clone()
+        patches_cuda.extract_patches_into(lab, grid, 77, 11, s, buf, row0)
+        patches_cuda.extract_patches_into_plain(lab, grid, 77, 11, s, ref,
+                                                row0)
+        torch.cuda.synchronize()
+        check(torch.equal(buf, ref), f"kernel A differs from its plain "
+              f"version in packed rows from row {row0} at stride {s}")
+        return buf[row0 : row0 + n, :pc]
+
+    for row0 in (3 * p0, 1):  # frame 3 of a batch; an odd first row
+        block = check_packed_a(padded, dgrid, STRIDE, row0)
+        check(torch.equal(block, want.reshape(p0, pc)), "kernel A's packed "
+              "rows differ from its [gh, gw, R, R, 3] output")
+    out363 = torch.empty_like(got)
+    rows_a = torch.empty((p0, layout.row_bytes), dtype=torch.uint8, device=dev)
+    ms_a363 = time_launch(patches_cuda.launcher(
+        padded, dgrid, 77, 11, STRIDE, out363, 0, pc), 50)
+    ms_a = time_launch(patches_cuda.launcher(
+        padded, dgrid, 77, 11, STRIDE, rows_a, 0, layout.row_bytes), 50)
+    wrapper_ms_a363 = time_cuda(
         lambda: patches_cuda.extract_patches(padded, dgrid, 77, 11, STRIDE), 50
     )
-    plain_ms_a = time_cuda(
-        lambda: extract_patches_plain(padded, dgrid, 77, 11, STRIDE), 5
+    wrapper_ms_a = time_cuda(
+        lambda: patches_cuda.extract_patches_into(padded, dgrid, 77, 11,
+                                                  STRIDE, rows_a, 0), 50
     )
-    print(f"phase 2: kernel A == plain at VGA stride 2 "
-          f"({tuple(got.shape)} uint8); {ms_a:.4f} ms vs plain "
-          f"{plain_ms_a:.4f} ms ({card})")
+    plain_ms_a = time_cuda(
+        lambda: patches_cuda.extract_patches_into_plain(
+            padded, dgrid, 77, 11, STRIDE, rows_a, 0), 5
+    )
+    bound_a = resample_bound(4 * hp * wp, dgrid, pc, layout.row_bytes)
+    bound_a363 = resample_bound(4 * hp * wp, dgrid, pc, pc)
+    print(f"phase 2: pack_lab == plain: device time alone {ms_pack:.4f} ms, "
+          f"wrapper {wrapper_ms_pack:.4f} ms, plain {plain_ms_pack:.4f} ms; "
+          f"bound {results['pack_lab']['bound_ms']:.4f} ms, "
+          f"{results['pack_lab']['bound_ms'] / ms_pack:.1%} of it ({card})")
+    print(f"phase 2: kernel A == plain at VGA stride 2 into {pc}-B rows "
+          f"([gh, gw, R, R, 3]) and into {layout.row_bytes}-B packed rows from "
+          f"rows {3 * p0} and 1; device time alone {ms_a363:.4f} / "
+          f"{ms_a:.4f} ms, wrapper (pack_lab, taps, launch) "
+          f"{wrapper_ms_a363:.4f} / {wrapper_ms_a:.4f} ms; bound "
+          f"{bound_a363['bound_ms']:.4f} / {bound_a['bound_ms']:.4f} ms by "
+          f"{bound_a['bound_by']} ({bound_a['bound_bytes']} B, "
+          f"{bound_a['bound_ops']} instructions on the busiest pipe), "
+          f"{bound_a363['bound_ms'] / ms_a363:.1%} / "
+          f"{bound_a['bound_ms'] / ms_a:.1%} of it; plain {plain_ms_a:.4f} ms "
+          f"({card})")
+    results["patches"] = dict(max_abs_err=err_a, ms=ms_a,
+                              wrapper_ms=wrapper_ms_a, ms_363=ms_a363,
+                              plain_ms=plain_ms_a, **bound_a)
+
     got_d = patches_planar_cuda.extract_patches_planar(
         padded, dgrid, 77, 11, STRIDE
     )
@@ -416,7 +609,9 @@ def run(card: str) -> dict:
     check(torch.equal(want_d, want), "the separable plain version differs "
           "from extract_patches_plain at VGA stride 2")
     err_d = int((got_d.int() - want_d.int()).abs().max())
-    ms_d = time_cuda(
+    launch_d, _ = patches_planar_cuda.launcher(padded, dgrid, 77, 11, STRIDE)
+    ms_d = time_launch(launch_d, 50)
+    wrapper_ms_d = time_cuda(
         lambda: patches_planar_cuda.extract_patches_planar(
             padded, dgrid, 77, 11, STRIDE), 50
     )
@@ -424,9 +619,13 @@ def run(card: str) -> dict:
         lambda: extract_patches_separable_plain(padded, dgrid, 77, 11, STRIDE),
         5,
     )
+    bound_d = resample_bound(3 * hp * wp, dgrid, pc, pc)
     print(f"phase 2b: kernel D' == kernel A == both plain versions at VGA "
-          f"stride 2; {ms_d:.4f} ms vs separable plain {plain_ms_d:.4f} ms "
-          f"({card})")
+          f"stride 2; device time alone {ms_d:.4f} ms, wrapper (with the "
+          f"planar copy) {wrapper_ms_d:.4f} ms; bound "
+          f"{bound_d['bound_ms']:.4f} ms by {bound_d['bound_by']}, "
+          f"{bound_d['bound_ms'] / ms_d:.1%} of it; separable plain "
+          f"{plain_ms_d:.4f} ms ({card})")
     small = make_frames(np.random.default_rng(1), 1, 240, 320)[0]
     for s in (1, 5):
         srgb, sdepth = frame_tensors(*small)
@@ -436,15 +635,19 @@ def run(card: str) -> dict:
         d = patches_planar_cuda.extract_patches_planar(sp, sd, 77, 11, s)
         torch.cuda.synchronize()
         check(torch.equal(a, b), f"kernel A differs at 240x320 stride {s}")
-        print(f"phase 2: kernel A == plain at 240x320 stride {s}")
+        check(torch.equal(check_packed_a(sp, sd, s, 7),
+                          b.reshape(sd.numel(), pc)),
+              f"kernel A's packed rows differ at 240x320 stride {s}")
+        print(f"phase 2: kernel A == plain at 240x320 stride {s}, both "
+              f"strides")
         check(torch.equal(d, a), f"kernel D' differs at 240x320 stride {s}")
         print(f"phase 2b: kernel D' == kernel A at 240x320 stride {s}")
-    results["patches"] = dict(max_abs_err=err_a, ms=ms_a, plain_ms=plain_ms_a)
     results["patches_planar"] = dict(
-        max_abs_err=err_d, ms=ms_d, plain_ms=plain_ms_d
+        max_abs_err=err_d, ms=ms_d, wrapper_ms=wrapper_ms_d,
+        plain_ms=plain_ms_d, **bound_d
     )
 
-    # ---- phase 3: kernel B vs plain, fixture forest on the VGA features
+    # ---- phase 3: kernel B vs plain, fixture forest, float and packed rows
     forest_np = load_forest(FIXTURE, class_counts=[8, 9])
     forest = forest_from_numpy(forest_np, dev)
     kinv = torch.from_numpy(calib.intrinsic_inverse).to(dev)
@@ -454,22 +657,98 @@ def run(card: str) -> dict:
     check(tuple(feats.shape) == ((H // 2) * (W // 2), 366),
           f"feature shape {tuple(feats.shape)}")
     check(bool(torch.isfinite(feats).all()), "non-finite features")
+    float_layout = RowLayout.float32(feats.shape[1])
     leaves, post = forest_cuda.forest_predict(feats, forest)
     want_leaves, want_post = forest_cuda.forest_predict_plain(feats, forest)
     torch.cuda.synchronize()
     check(torch.equal(leaves, want_leaves), "kernel B leaf ids differ")
     check(torch.equal(post, want_post), "kernel B posteriors differ")
     err_b = float((post - want_post).abs().max())
-    ms_b = time_cuda(lambda: forest_cuda.forest_predict(feats, forest), 50)
+    rows0 = torch.empty((p0, layout.row_bytes), dtype=torch.uint8, device=dev)
+    mask_r = extract_feature_rows(rgb_t, depth_t, kinv, rot, trans, cfg,
+                                  STRIDE, rows0, 0)
+    check(torch.equal(mask_r, mask), "packed rows give another mask")
+    check(torch.equal(unpack_rows(rows0, layout).view(torch.int32),
+                      feats.view(torch.int32)),
+          "the frame's packed rows unpack to other features")
+    leaves_r, post_r = forest_cuda.forest_predict_rows(rows0, layout, forest)
+    torch.cuda.synchronize()
+    check(torch.equal(leaves_r, want_leaves) and torch.equal(post_r, want_post),
+          "kernel B on packed rows differs from the plain version")
+    print(f"phase 3: kernel B == plain on the frame's {tuple(feats.shape)} "
+          f"float rows and its {tuple(rows0.shape)} packed rows, "
+          f"{forest.num_trees} trees")
+
+    # The main path's shape: one descent over a batch of 8 keyframes.
+    nb = FRAMES
+    rows8 = torch.empty((nb * p0, layout.row_bytes), dtype=torch.uint8,
+                        device=dev)
+    feats8 = []
+    for i in range(nb):
+        rgb_i, depth_i = frame_tensors(*frames[i])
+        extract_feature_rows(rgb_i, depth_i, kinv, rot, trans, cfg, STRIDE,
+                             rows8, i * p0)
+        feats8.append(extract_features(rgb_i, depth_i, kinv, rot, trans, cfg,
+                                       STRIDE)[0])
+    feats8 = torch.cat(feats8)
+    l8r, p8r = forest_cuda.forest_predict_rows(rows8, layout, forest)
+    l8f, p8f = forest_cuda.forest_predict(feats8, forest)
+    l8p, p8p = forest_cuda.forest_predict_plain(feats8, forest)
+    torch.cuda.synchronize()
+    check(torch.equal(l8r, l8p) and torch.equal(p8r, p8p),
+          "kernel B on the batch's packed rows differs from the plain version")
+    check(torch.equal(l8f, l8p) and torch.equal(p8f, p8p),
+          "kernel B on the batch's float rows differs from the plain version")
+    reads8 = descent_reads(feats8, forest)
+    reads0 = descent_reads(feats, forest)
+    check(torch.equal(reads8["leaf_ids"], l8p)
+          and torch.equal(reads0["leaf_ids"], want_leaves),
+          "the read count's descent differs from the plain descent")
+    launch_b, _, _ = forest_cuda.launcher(rows8, layout, forest)
+    launch_bf, _, _ = forest_cuda.launcher(feats8.view(torch.uint8),
+                                           float_layout, forest)
+    launch_b1, _, _ = forest_cuda.launcher(rows0, layout, forest)
+    launch_b1f, _, _ = forest_cuda.launcher(feats.view(torch.uint8),
+                                            float_layout, forest)
+    ms_b, ms_bf, ms_b1, ms_b1f = (time_launch(fn, 20) for fn in (
+        launch_b, launch_bf, launch_b1, launch_b1f))
+    wrapper_ms_b = time_cuda(
+        lambda: forest_cuda.forest_predict_rows(rows8, layout, forest), 20
+    )
     plain_ms_b = time_cuda(
-        lambda: forest_cuda.forest_predict_plain(feats, forest), 5
+        lambda: forest_cuda.forest_predict_plain(unpack_rows(rows8, layout),
+                                                 forest), 2, warmup=1
     )
-    print(f"phase 3: kernel B == plain on {tuple(feats.shape)} features, "
-          f"{forest.num_trees} trees; "
-          f"{ms_b:.4f} ms vs plain {plain_ms_b:.4f} ms ({card})")
+    bounds_b = {
+        name: descent_bound(reads, forest, lay)
+        for name, reads, lay in (("batch packed", reads8, layout),
+                                 ("batch float", reads8, float_layout),
+                                 ("frame packed", reads0, layout),
+                                 ("frame float", reads0, float_layout))
+    }
+    pairs = reads8["touched"].shape[0] * forest.num_trees
+    print(f"phase 3: the descent on {nb} keyframes: "
+          f"{reads8['levels'] / pairs:.3f} levels per (point, tree), "
+          f"{int(reads8['touched'].sum()) / (nb * p0):.3f} distinct features "
+          f"per point, {reads8['records']} node records, "
+          f"{reads8['leaves']} leaf histograms")
+    for (name, bnd), ms in zip(bounds_b.items(), (ms_b, ms_bf, ms_b1, ms_b1f)):
+        print(f"phase 3: kernel B on the {name} rows: device time alone "
+              f"{ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms by "
+              f"{bnd['bound_by']} ({bnd['bound_bytes']} B, of them "
+              f"{bnd['feature_bytes']} B of features), {bnd['bound_ms'] / ms:.1%}"
+              f" of it ({card})")
+    print(f"phase 3: kernel B == plain on the batch's {tuple(rows8.shape)} "
+          f"packed rows and {tuple(feats8.shape)} float rows; wrapper "
+          f"{wrapper_ms_b:.4f} ms, plain (unpack, descent, sum) "
+          f"{plain_ms_b:.4f} ms ({card})")
+    bound_b = dict(bounds_b["batch packed"])
+    bound_b.pop("feature_bytes")
     results["forest_descent"] = dict(
-        max_abs_err=err_b, ms=ms_b, plain_ms=plain_ms_b
+        max_abs_err=err_b, ms=ms_b, wrapper_ms=wrapper_ms_b,
+        plain_ms=plain_ms_b, **bound_b
     )
+    del feats8, rows8, reads8, l8r, p8r, l8f, p8f, l8p, p8p
 
     # ---- phase 3b: kernel C' on the usage-permuted features
     perm, remap = usage_permutation(forest, feats.shape[1])
@@ -484,7 +763,7 @@ def run(card: str) -> dict:
     want_c = plain_c()
     check(torch.equal(want_c, want_leaves), "the plain descent on permuted "
           "features differs from the unpermuted one")
-    ms_c = {}
+    ms_c, wrapper_ms_c = {}, {}
     for hot in (128, 366):
         got_c = forest_staged_cuda.find_leaves_staged(feats_p, forest_p, hot)
         torch.cuda.synchronize()
@@ -496,19 +775,61 @@ def run(card: str) -> dict:
                           post),
               f"posteriors from kernel C' (hot {hot}) leaves differ from B's")
         err_c = int((got_c - want_c).abs().max())
-        ms_c[hot] = time_cuda(
+        launch_c, _ = forest_staged_cuda.launcher(feats_p, forest_p, hot)
+        ms_c[hot] = time_launch(launch_c, 50)
+        wrapper_ms_c[hot] = time_cuda(
             lambda hot=hot: forest_staged_cuda.find_leaves_staged(
                 feats_p, forest_p, hot), 50
         )
         print(f"phase 3b: kernel C' (hot {hot}, "
               f"{forest_staged_cuda.TILE_POINTS} points per block) == B == "
-              f"plain; {ms_c[hot]:.4f} ms ({card})")
+              f"plain; device time alone {ms_c[hot]:.4f} ms, wrapper "
+              f"{wrapper_ms_c[hot]:.4f} ms ({card})")
     plain_ms_c = time_cuda(plain_c, 5)
-    print(f"phase 3b: plain descent on permuted features {plain_ms_c:.4f} ms "
-          f"({card})")
+    bound_c = descent_bound(reads0, forest, float_layout,
+                            with_histograms=False)
+    bound_c.pop("feature_bytes")
+    print(f"phase 3b: C' bound {bound_c['bound_ms']:.4f} ms by "
+          f"{bound_c['bound_by']}, {bound_c['bound_ms'] / ms_c[366]:.1%} of "
+          f"it at hot 366; plain descent on permuted features "
+          f"{plain_ms_c:.4f} ms ({card})")
     results["forest_descent_staged"] = dict(
-        max_abs_err=err_c, ms=ms_c[366], plain_ms=plain_ms_c
+        max_abs_err=err_c, ms=ms_c[366], wrapper_ms=wrapper_ms_c[366],
+        plain_ms=plain_ms_c, **bound_c
     )
+
+    # ---- phase 3c: one profiled batch of 8 keyframes through the frame path,
+    # in a process of its own (scripts/profile_frames.py on the same seed's
+    # first 8 keyframes), so that the profiler's tracing does not stay
+    # attached to this process through the phases that time the main path.
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "rovinasemanticsegmentation_tpu_torch",
+                                      "scripts", "profile_frames.py"),
+         "--reps", "1"],
+        capture_output=True, text=True, timeout=600,
+    )
+    check(proc.returncode == 0,
+          f"scripts/profile_frames.py failed: {proc.stderr[-3000:]}")
+    prof3 = json.loads(proc.stdout.strip().splitlines()[-1])
+    launches3 = {name: prof3["port_kernels"][name]["launches_per_batch"]
+                 for name in ("patches_kernel", "forest_descent_kernel")}
+    for name, n in launches3.items():
+        check(n > 0, f"kernel {name} did not run in run_batch_stacked")
+    check(not prof3["float_feature_passes"], "float passes over the "
+          f"features on the frame path: {prof3['float_feature_passes']}")
+    print(f"phase 3c: run_batch_stacked, {nb} VGA keyframes under "
+          f"torch.profiler: device time {prof3['device_ms_per_keyframe']:.4f} "
+          f"ms per keyframe (busy {prof3['busy_ms_per_keyframe']:.4f} ms, "
+          f"{prof3['device_activities_per_batch']:.0f} activities per batch), "
+          f"wall {prof3['wall_ms_per_keyframe']:.4f} ms per keyframe; no float "
+          f"cat/where/to over [P, 363] or [P, 366] features; kernels run per "
+          f"batch {launches3} ({card})")
+    for k in prof3["top_kernels"]:
+        print(f"phase 3c:   {k['us_per_keyframe']:9.3f} us per keyframe, "
+              f"{k['launches_per_batch']:.0f} per batch: {k['name']}")
+    for name, k in prof3["port_kernels"].items():
+        print(f"phase 3c: port kernel {name}: {k['us_per_keyframe']:.3f} us "
+              f"per keyframe, {k['launches_per_batch']:.0f} per batch")
 
     # ---- phase 4: serving through the HTTP services
     topics = ["/camera_front/rgb/image", "/camera_front/depth/image"]
@@ -556,6 +877,7 @@ def run(card: str) -> dict:
         reset_counts()
         frame_s, per_map = serve_session(seg)
         launches = {
+            "pack_lab": patches_cuda.pack_launches.value,
             "patches": patches_cuda.launches.value,
             "forest_descent": forest_cuda.launches.value,
         }
@@ -933,13 +1255,24 @@ def run(card: str) -> dict:
           f"device build {ms10[True]:.3f} ms, host build {ms10[False]:.3f} ms "
           f"per image on the card (median of 3) ({card})")
 
+    # No single PyTorch call computes any of these functions, so no library
+    # call is timed beside them.
     return {
         "kernels": [
+            {
+                "name": "pack_lab",
+                "route": "cuda",
+                "source": "rovinasemanticsegmentation_tpu_torch/csrc/patches.cu",
+                "replaces": "rovinasemanticsegmentation_tpu/ops/patches_pallas.py:168",
+                "library_ms": None,
+                **results["pack_lab"],
+            },
             {
                 "name": "patches",
                 "route": "cuda",
                 "source": "rovinasemanticsegmentation_tpu_torch/csrc/patches.cu",
                 "replaces": "rovinasemanticsegmentation_tpu/ops/patches_pallas.py:50",
+                "library_ms": None,
                 **results["patches"],
             },
             {
@@ -948,6 +1281,7 @@ def run(card: str) -> dict:
                 "source": "rovinasemanticsegmentation_tpu_torch/csrc/"
                           "forest_descent.cu",
                 "replaces": "rovinasemanticsegmentation_tpu/ops/forest_pallas.py:140",
+                "library_ms": None,
                 **results["forest_descent"],
             },
             {
@@ -956,6 +1290,7 @@ def run(card: str) -> dict:
                 "source": "rovinasemanticsegmentation_tpu_torch/csrc/"
                           "forest_descent_staged.cu",
                 "replaces": "scripts/exp_descent.py:64",
+                "library_ms": None,
                 **results["forest_descent_staged"],
             },
             {
@@ -964,6 +1299,7 @@ def run(card: str) -> dict:
                 "source": "rovinasemanticsegmentation_tpu_torch/csrc/"
                           "patches_planar.cu",
                 "replaces": "scripts/exp_patches.py:49",
+                "library_ms": None,
                 **results["patches_planar"],
             },
         ],

@@ -13,10 +13,12 @@ kernels of the keyframe path are hand-written CUDA C++ for ``sm_90a``
   leaf-histogram sum (``ops/forest_cuda.py``).
 
 On a CPU tensor each kernel wrapper runs the kernel's plain PyTorch version;
-on a CUDA tensor it launches the kernel or raises. The package never imports
-``jax``; it reuses only the reference package's jax-free modules
-(``utils/{config,calibration,labels,metrics,imageio}.py``,
-``features/dataset.py``, ``serve/camera.py`` and ``native/``).
+on a CUDA tensor it launches the kernel or raises. The package imports
+neither ``jax`` nor anything of the JAX package: it keeps its own copies of
+the JAX package's jax-free modules (``utils/{config,calibration,labels,
+metrics,imageio}.py``, ``features/dataset.py``, ``serve/camera.py`` and
+``native/``, whose C++ library builds from the port's sources into
+``csrc/_build/``).
 
 The dense CRF (``models/lattice.py``, ``models/crf.py``,
 ``models/crf2d_device.py``) is plain PyTorch, like its JAX counterpart,

@@ -25,10 +25,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from rovinasemanticsegmentation_tpu.utils.imageio import load_ppm, save_ppm
-
 from ..models.crf import DenseCRF2D, PottsCompatibility
 from ..models.crf2d_device import dense2d_map_from_labels_device
+from ..utils.imageio import load_ppm, save_ppm
 
 M = 21  # number of labels, dense_inference.cpp:33
 GT_PROB = 0.5  # dense_inference.cpp:35

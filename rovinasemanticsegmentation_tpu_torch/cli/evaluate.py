@@ -7,8 +7,9 @@ full-resolution resize -> argmax labels (-1 floor); write the colourised
 predictions, accumulate confusion counts where prediction and ground truth
 are both >= 0, and print the per-layer confusion matrix, global accuracy,
 class-average accuracy, mean IoU and the time per image. The dataset
-reader, the metrics, the image IO and the label codings are the JAX
-package's jax-free modules.
+reader, the metrics, the image IO and the label codings are the port's
+copies of the JAX package's modules (``features/dataset.py``,
+``utils/{metrics,imageio,labels}.py``).
 
 One flag more than the JAX CLIs: ``--device`` (``cuda`` by default, or
 ``cpu``).
@@ -23,22 +24,21 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from rovinasemanticsegmentation_tpu.features.dataset import (
+from ..features.dataset import (
     RovinaDataset,
     layer_prefixes_for,
     model_path_for,
 )
-from rovinasemanticsegmentation_tpu.utils.config import (
-    Config,
-    parse_cli_overrides,
-)
-from rovinasemanticsegmentation_tpu.utils.imageio import save_color
-from rovinasemanticsegmentation_tpu.utils.labels import RgbLabelConversion
-from rovinasemanticsegmentation_tpu.utils.metrics import ConfusionAccumulator
-
 from ..features.extractor import FeatureConfig
 from ..models.forest import load_forest
 from ..pipelines.single_frame import SingleFramePipeline
+from ..utils.config import (
+    Config,
+    parse_cli_overrides,
+)
+from ..utils.imageio import save_color
+from ..utils.labels import RgbLabelConversion
+from ..utils.metrics import ConfusionAccumulator
 
 
 def config_and_device(argv: Sequence[str]) -> Tuple[Config, str]:

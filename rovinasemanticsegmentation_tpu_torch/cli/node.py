@@ -26,15 +26,14 @@ import signal
 import sys
 import threading
 
-from rovinasemanticsegmentation_tpu.utils.config import (
-    Config,
-    parse_cli_overrides,
-)
-
 from ..serve.segmenter import Segmenter
 from ..serve.services import (
     SegmentationServiceServer,
     heuristic_single_frame_segmentation,
+)
+from ..utils.config import (
+    Config,
+    parse_cli_overrides,
 )
 
 

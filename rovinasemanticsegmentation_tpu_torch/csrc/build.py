@@ -42,14 +42,16 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 # Signatures of the C entry points; every one returns cudaGetLastError().
 _SIGNATURES = {
-    # packed, hp, wp, depth, gh, gw, t0, t1, w0, w1, patch, reduce, stride,
-    # out, stream
-    "rovina_patches": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-                       _P, _P],
-    # features, P, D, records, T, N, leaf_hist, LC, max_depth, feat_bits,
-    # leaves, posterior, stream
-    "rovina_forest_descent": [_P, _I64, _I, _P, _I, _I, _P, _I, _I, _I,
-                              _P, _P, _P],
+    # lab, pixels, out, stream
+    "rovina_pack_lab": [_P, _I, _P, _P],
+    # packed, wp, depth, gh, gw, t0, t1, w0, w1, patch, reduce, stride,
+    # out, row0, row_bytes, stream
+    "rovina_patches": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                       _P, _I64, _I, _P],
+    # rows, P, row_bytes, pc, tail_off, records, T, N, leaf_hist, LC,
+    # max_depth, feat_bits, tile_points, leaves, posterior, stream
+    "rovina_forest_descent": [_P, _I64, _I, _I, _I, _P, _I, _I, _P, _I, _I,
+                              _I, _I, _P, _P, _P],
     # features, P, D, hot, records, T, N, max_depth, feat_bits, tile_points,
     # leaves, stream
     "rovina_forest_descent_staged": [_P, _I64, _I, _I, _P, _I, _I, _I, _I,

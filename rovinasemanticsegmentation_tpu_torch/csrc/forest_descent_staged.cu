@@ -12,9 +12,9 @@
 // What bounds it on the card: kernel B (forest_descent.cu) walks a chain of
 // dependent loads per level -- the 8-byte node record, then one feature of
 // the point's row. The node tables stay in L2, the feature matrix of a VGA
-// frame (76800 x 366 x 4 B = 112 MB) does not, so about 4 trees x 20 levels
-// of feature reads per point go to device memory as 32-byte sectors
-// (~2.5 KB per point) at its latency.
+// frame (76800 x 366 x 4 B = 112 MB) does not, so about 4 trees x 11.3
+// levels (the mean on a VGA frame, 27 at most) of feature reads per point go
+// to device memory as 32-byte sectors (~1.4 KB per point) at its latency.
 //
 // Design: a block takes TP consecutive points and TP * T threads, trees
 // adjacent. It first copies each point's first `hot` features into shared

@@ -10,19 +10,19 @@ angle]`` with the same config gating.
 
 The colour patches go through ``ops/patches_cuda.py``: the CUDA kernel on a
 CUDA device at any stride, its plain version on the CPU.
+:func:`extract_features` returns float32 rows; the frame path calls
+:func:`extract_feature_rows`, which writes the same features as packed 8-bit
+rows (``ops/feature_rows.py``) into the batch's row buffer.
 """
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-
-from rovinasemanticsegmentation_tpu.utils.calibration import Calibration
-from rovinasemanticsegmentation_tpu.utils.config import Config
 
 from ..device import resolve_device
 from ..ops.color import rgb_to_lab8
@@ -31,9 +31,12 @@ from ..ops.geometry import (
     depth_valid_mask,
     millimetres_to_metres,
 )
+from ..ops.feature_rows import RowLayout, check_rows, tail_view
 from ..ops.normals import normal_angles_grid
 from ..ops.patches import reflect_pad_image
-from ..ops.patches_cuda import extract_patches
+from ..ops.patches_cuda import extract_patches, extract_patches_into
+from ..utils.calibration import Calibration
+from ..utils.config import Config
 
 
 class ExtractType(enum.Enum):
@@ -104,6 +107,36 @@ def patch_inputs(
     return padded, torch.where(mask, depth_m, torch.zeros_like(depth_m))
 
 
+def feature_row_layout(config: FeatureConfig) -> RowLayout:
+    """The packed row of ``config``'s features (``ops/feature_rows.py``)."""
+    r = config.patch_size_reduce
+    return RowLayout.packed(
+        3 * r * r if config.use_color_patch else 0,
+        int(config.use_depth) + int(config.use_height) + int(config.use_normal),
+    )
+
+
+def _tail_features(
+    depth_f, depth_m, intrinsic_inverse, rotation, translation,
+    config: FeatureConfig, s: int,
+) -> List[torch.Tensor]:
+    """Depth, height and normal angle, each [P, 1] float32, as enabled."""
+    parts = []
+    if config.use_depth:
+        parts.append(depth_m.reshape(-1, 1))
+    if config.use_height or config.use_normal:
+        points = backproject(
+            depth_f, intrinsic_inverse, rotation, translation,
+            config.d_min, config.d_max,
+        )
+        if config.use_height:
+            height = points[::s, ::s, 2].reshape(-1, 1)
+            parts.append(torch.nan_to_num(height))
+        if config.use_normal:
+            parts.append(normal_angles_grid(points, s).reshape(-1, 1))
+    return parts
+
+
 def extract_features(
     rgb: torch.Tensor,  # [H, W, 3] uint8 (RGB order)
     depth_mm: torch.Tensor,  # [H, W] depth in millimetres
@@ -127,24 +160,56 @@ def extract_features(
         )
         r = config.patch_size_reduce
         parts.append(patches.reshape(gh * gw, r * r * 3).to(torch.float32))
-    if config.use_depth:
-        parts.append(depth_m.reshape(-1, 1))
-
-    if config.use_height or config.use_normal:
-        points = backproject(
-            depth_f, intrinsic_inverse, rotation, translation,
-            config.d_min, config.d_max,
-        )
-        if config.use_height:
-            height = points[::s, ::s, 2].reshape(-1, 1)
-            parts.append(torch.nan_to_num(height))
-        if config.use_normal:
-            parts.append(normal_angles_grid(points, s).reshape(-1, 1))
+    parts += _tail_features(depth_f, depth_m, intrinsic_inverse, rotation,
+                            translation, config, s)
 
     mask = mask2d.reshape(-1)
     features = torch.cat(parts, dim=1)
     features = torch.where(mask[:, None], features, torch.zeros_like(features))
     return features, mask
+
+
+def extract_feature_rows(
+    rgb: torch.Tensor,  # [H, W, 3] uint8 (RGB order)
+    depth_mm: torch.Tensor,  # [H, W] depth in millimetres
+    intrinsic_inverse: torch.Tensor,  # [3, 3]
+    rotation: torch.Tensor,  # [3, 3]
+    translation: torch.Tensor,  # [3]
+    config: FeatureConfig,
+    stride: int,
+    rows: torch.Tensor,  # [N, row_bytes] uint8, feature_row_layout(config)
+    row0: int,
+) -> torch.Tensor:
+    """:func:`extract_features` written as packed rows ``[row0, row0 + P)``.
+
+    Kernel A writes the patch bytes (and zeros to the end of each row); the
+    float32 tail goes into a float32 view of the rows. Masked rows are all
+    zero bytes. -> mask [P] bool. Unpacked (``unpack_rows``), the rows equal
+    :func:`extract_features`' float rows bit for bit.
+    """
+    layout = feature_row_layout(config)
+    check_rows(rows, layout)
+    s = int(stride)
+    depth_f = depth_mm.to(torch.float32)
+    mask2d, depth_m = _grid_depth(depth_f, config, s)
+    mask = mask2d.reshape(-1)
+    block = rows[row0 : row0 + mask.shape[0]]
+    if config.use_color_patch:
+        padded, depth_grid = patch_inputs(rgb, depth_mm, config, s)
+        extract_patches_into(
+            padded, depth_grid, config.patch_size, config.patch_size_reduce, s,
+            rows, row0,
+        )
+    tail = tail_view(block, layout)
+    parts = _tail_features(depth_f, depth_m, intrinsic_inverse, rotation,
+                           translation, config, s)
+    k = len(parts)
+    if k:
+        values = torch.cat(parts, dim=1)  # [P, k], k <= 3
+        tail[:, :k] = torch.where(mask[:, None], values,
+                                  torch.zeros((), device=values.device))
+    tail[:, k:] = 0
+    return mask
 
 
 class FeatureExtractor:

@@ -21,7 +21,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from rovinasemanticsegmentation_tpu.utils.calibration import Calibration
+from ..utils.calibration import Calibration
 
 _BIG = 3.0e38
 

@@ -351,8 +351,8 @@ def read_reference_forest(f: BinaryIO) -> List[RawTree]:
 def _load_forest_native(
     data: bytes, class_counts: Optional[Sequence[int]]
 ) -> Optional[Forest]:
-    """Single-pass decode through the reference package's C++ codec."""
-    from rovinasemanticsegmentation_tpu.native import native_forest_decode
+    """Single-pass decode through the port's C++ codec (``native/``)."""
+    from ..native import native_forest_decode
 
     decoded = native_forest_decode(data)
     if decoded is None:

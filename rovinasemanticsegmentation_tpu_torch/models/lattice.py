@@ -77,7 +77,7 @@ def build_lattice(
     n, d = features.shape
 
     if use_native:
-        from rovinasemanticsegmentation_tpu.native import native_lattice_build
+        from ..native import native_lattice_build
 
         built = native_lattice_build(features)
         if built is not None:

@@ -13,6 +13,8 @@ the natural numbering and agree exactly.
 
 from __future__ import annotations
 
+from typing import Callable, Tuple
+
 import torch
 
 from ..csrc.build import (
@@ -62,6 +64,18 @@ def find_leaves_staged(
         return find_leaves_plain(
             features, forest.records, forest.max_depth, forest.feat_bits
         )
+    launch, leaves = launcher(features, forest, hot, tile_points)
+    launch()
+    return leaves
+
+
+def launcher(
+    features: torch.Tensor, forest: TorchForest, hot: int,
+    tile_points: int = TILE_POINTS,
+) -> Tuple[Callable[[], None], torch.Tensor]:
+    """Kernel C' on CUDA features, split in two: allocate the leaf ids now
+    and return (the function that launches the kernel and counts the
+    launch, leaf ids), so that the launch alone can be timed."""
     if features.device.type != "cuda":
         raise ValueError(f"unsupported device {features.device}")
     num_trees, n_nodes, _ = forest.records.shape
@@ -69,16 +83,19 @@ def find_leaves_staged(
     records = forest.records.contiguous()
     p, d = features.shape
     leaves = torch.empty((p, num_trees), dtype=torch.int32, device=features.device)
-    if p == 0:
-        return leaves
     lib = load_kernels()
-    with torch.cuda.device(features.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rovina_forest_descent_staged(
-            features.data_ptr(), p, d, hot, records.data_ptr(), num_trees,
-            n_nodes, forest.max_depth, forest.feat_bits, tile_points,
-            leaves.data_ptr(), stream,
-        )
-    check_launch("rovina_forest_descent_staged", err)
-    launches.add()
-    return leaves
+
+    def launch() -> None:
+        if p == 0:
+            return
+        with torch.cuda.device(features.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.rovina_forest_descent_staged(
+                features.data_ptr(), p, d, hot, records.data_ptr(), num_trees,
+                n_nodes, forest.max_depth, forest.feat_bits, tile_points,
+                leaves.data_ptr(), stream,
+            )
+        check_launch("rovina_forest_descent_staged", err)
+        launches.add()
+
+    return launch, leaves

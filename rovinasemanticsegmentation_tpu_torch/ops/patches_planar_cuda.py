@@ -13,6 +13,8 @@ to kernel A and to ``extract_patches_plain``.
 
 from __future__ import annotations
 
+from typing import Callable, Tuple
+
 import torch
 
 from ..csrc.build import (
@@ -66,24 +68,42 @@ def extract_patches_planar(
         return extract_patches_separable_plain(
             padded_lab, depth_grid, patch_size, r, stride
         )
+    launch, out = launcher(padded_lab, depth_grid, patch_size, r, stride)
+    launch()
+    return out
+
+
+def launcher(
+    padded_lab: torch.Tensor, depth_grid: torch.Tensor, patch_size: int,
+    reduce_size: int, stride: int,
+) -> Tuple[Callable[[], None], torch.Tensor]:
+    """Kernel D' on CUDA tensors, split in two: make the image planar, the
+    tap tables and the output now, and return (the function that launches
+    the kernel and counts the launch, output), so that the launch alone can
+    be timed."""
     if padded_lab.device.type != "cuda":
         raise ValueError(f"unsupported device {padded_lab.device}")
     dev = padded_lab.device
+    r = reduce_size
+    gh, gw = depth_grid.shape
     planar = padded_lab.permute(2, 0, 1).contiguous()
     depth = depth_grid.contiguous()
     t0, t1, w0, w1 = tap_tensors(patch_size, r, dev)
     out = torch.empty((gh, gw, r, r, 3), dtype=torch.uint8, device=dev)
-    if gh * gw == 0:
-        return out
     lib = load_kernels()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rovina_patches_planar(
-            planar.data_ptr(), planar.shape[1], planar.shape[2],
-            depth.data_ptr(), gh, gw,
-            t0.data_ptr(), t1.data_ptr(), w0.data_ptr(), w1.data_ptr(),
-            patch_size, r, stride, GROUP, out.data_ptr(), stream,
-        )
-    check_launch("rovina_patches_planar", err)
-    launches.add()
-    return out
+
+    def launch() -> None:
+        if gh * gw == 0:
+            return
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.rovina_patches_planar(
+                planar.data_ptr(), planar.shape[1], planar.shape[2],
+                depth.data_ptr(), gh, gw,
+                t0.data_ptr(), t1.data_ptr(), w0.data_ptr(), w1.data_ptr(),
+                patch_size, r, stride, GROUP, out.data_ptr(), stream,
+            )
+        check_launch("rovina_patches_planar", err)
+        launches.add()
+
+    return launch, out

@@ -14,8 +14,9 @@ per-keyframe worker (``segmenter.cpp:323-443``):
 5. per-pixel argmax with a -1000 floor: -1 where nothing beats it
    (``test_multi.cpp:206-216``).
 
-A batch of frames runs the descent once on the concatenated ``[B*P, D]``
-features.
+A batch of frames runs the descent once over one buffer of packed feature
+rows (``[B*P, row_bytes]`` uint8, ``ops/feature_rows.py``): kernel A writes
+each frame's patch bytes into it and the descent reads it there.
 """
 
 from __future__ import annotations
@@ -26,18 +27,18 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from rovinasemanticsegmentation_tpu.utils.calibration import Calibration
-
 from ..device import resolve_device
 from ..features.extractor import (
     FeatureConfig,
-    extract_features,
+    extract_feature_rows,
+    feature_row_layout,
     to_device_depth,
     to_device_image,
 )
 from ..models.forest import TorchForest, forest_from_numpy
-from ..ops.forest_cuda import forest_predict
+from ..ops.forest_cuda import forest_predict_rows
 from ..ops.resize import resize_bilinear
+from ..utils.calibration import Calibration
 
 ARGMAX_FLOOR = -1000.0  # test_multi.cpp:181,207
 
@@ -139,17 +140,21 @@ class SingleFramePipeline:
             for a in (kinv_stack, rot_stack, trans_stack)
         )
         b, h, w = depth_stack.shape
-        feats, masks = [], []
-        for i in range(b):
-            f, m = extract_features(
-                rgb_stack[i], depth_stack[i], kinv[i], rot[i], trans[i],
-                self.feature_config, self.stride,
-            )
-            feats.append(f)
-            masks.append(m)
-        _, post = forest_predict(torch.cat(feats, dim=0), self.forest)
-        p = masks[0].shape[0]
         grid_shape = (-(-h // self.stride), -(-w // self.stride))
+        p = grid_shape[0] * grid_shape[1]
+        # One packed row buffer for the batch: each frame's features are
+        # written into it in place, and the descent reads it.
+        layout = feature_row_layout(self.feature_config)
+        rows = torch.empty((b * p, layout.row_bytes), dtype=torch.uint8,
+                           device=dev)
+        masks = [
+            extract_feature_rows(
+                rgb_stack[i], depth_stack[i], kinv[i], rot[i], trans[i],
+                self.feature_config, self.stride, rows, i * p,
+            )
+            for i in range(b)
+        ]
+        _, post = forest_predict_rows(rows, layout, self.forest)
         results = []
         for i in range(b):
             posteriors, labels = posterior_maps(

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import statistics
 import subprocess
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 
@@ -48,10 +48,3 @@ def median_ms(
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
-def default_device(mode: str, device: Optional[str]) -> str:
-    """``bench`` measures the card; ``parity`` runs on the CPU unless told."""
-    if device is not None:
-        return device
-    return "cuda" if mode == "bench" else "cpu"

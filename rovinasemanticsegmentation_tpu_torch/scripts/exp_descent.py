@@ -15,7 +15,8 @@ Usage:
     python -m rovinasemanticsegmentation_tpu_torch.scripts.exp_descent bench \
         [--features random|real] [--hot 0 64 128 256 366] [--tile-points 16 32 64]
 
-``parity`` runs on the CPU (plain versions) unless ``--device cuda``;
+``parity`` runs on the card, or on the CPU (plain versions) with
+``--device cpu``;
 ``bench`` needs the card and times each version with CUDA events: median of
 ``--reps`` calls, each on a fresh input ``x + i * 1e-6``; B is timed before
 and after the variants. B's time covers descent plus its fused histogram
@@ -34,8 +35,6 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from rovinasemanticsegmentation_tpu.utils.calibration import Calibration
-
 from ..device import resolve_device
 from ..features.extractor import FeatureConfig, FeatureExtractor
 from ..models.forest import (
@@ -47,7 +46,8 @@ from ..models.forest import (
 )
 from ..ops import forest_cuda
 from ..ops.forest_staged_cuda import find_leaves_staged
-from . import card_description, default_device, median_ms
+from ..utils.calibration import Calibration
+from . import card_description, median_ms
 
 FIXTURE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -96,9 +96,8 @@ def parse_args(argv: Optional[List[str]]) -> argparse.Namespace:
     ap.add_argument("mode", choices=("parity", "bench"))
     ap.add_argument("--features", choices=("random", "real"),
                     default="random")
-    ap.add_argument("--device", default=None,
-                    help="cpu or cuda (default: cpu for parity, cuda for "
-                         "bench)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; bench needs cuda")
     ap.add_argument("--hot", type=int, nargs="+",
                     default=[0, 64, 128, 256, 366],
                     help="staged columns; 0 stages nothing (B's lookups "
@@ -111,7 +110,7 @@ def parse_args(argv: Optional[List[str]]) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> dict:
     args = parse_args(argv)
-    dev = resolve_device(default_device(args.mode, args.device))
+    dev = resolve_device(args.device)
     if args.mode == "bench" and dev.type != "cuda":
         raise RuntimeError("bench times the card: run it with --device cuda")
     forest = forest_from_numpy(load_forest(FIXTURE, class_counts=[8, 9]), dev)

@@ -12,8 +12,8 @@ Usage:
     python -m rovinasemanticsegmentation_tpu_torch.scripts.exp_patches parity
     python -m rovinasemanticsegmentation_tpu_torch.scripts.exp_patches bench
 
-``parity`` runs at 64x96, patch 21 -> 7, stride 2, on the CPU (plain
-versions) unless ``--device cuda``; ``bench`` runs at VGA, patch 77 -> 11,
+``parity`` runs at 64x96, patch 21 -> 7, stride 2, on the card, or on the
+CPU (plain versions) with ``--device cpu``; ``bench`` runs at VGA, patch 77 -> 11,
 stride 2, needs the card, and times each version with CUDA events: median
 of ``--reps`` calls, each on a fresh depth grid ``d * (1 + i * 1e-5)``; A is
 timed before and after the others. The last line printed is one JSON object.
@@ -39,7 +39,7 @@ from ..ops.patches import (
 )
 from ..ops.patches_cuda import extract_patches
 from ..ops.patches_planar_cuda import extract_patches_planar
-from . import card_description, default_device, median_ms
+from . import card_description, median_ms
 
 
 def make_depth(r: np.random.Generator, h: int, w: int) -> np.ndarray:
@@ -63,16 +63,15 @@ def parse_args(argv: Optional[List[str]]) -> argparse.Namespace:
         description="Separable planar patch kernel (D') against kernel A.",
     )
     ap.add_argument("mode", choices=("parity", "bench"))
-    ap.add_argument("--device", default=None,
-                    help="cpu or cuda (default: cpu for parity, cuda for "
-                         "bench)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; bench needs cuda")
     ap.add_argument("--reps", type=int, default=20)
     return ap.parse_args(argv)
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
     args = parse_args(argv)
-    dev = resolve_device(default_device(args.mode, args.device))
+    dev = resolve_device(args.device)
     bench = args.mode == "bench"
     if bench and dev.type != "cuda":
         raise RuntimeError("bench times the card: run it with --device cuda")

@@ -34,17 +34,6 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from rovinasemanticsegmentation_tpu.serve.camera import (
-    CameraBuffer,
-    parse_name_from_topic,
-)
-from rovinasemanticsegmentation_tpu.utils.calibration import Calibration
-from rovinasemanticsegmentation_tpu.utils.config import Config
-from rovinasemanticsegmentation_tpu.utils.labels import (
-    LayerCoding,
-    parse_color_codings,
-)
-
 from ..device import resolve_device
 from ..features.extractor import FeatureConfig, to_device_depth
 from ..fusion.projector import MultiProjector
@@ -52,6 +41,13 @@ from ..models.forest import forest_from_numpy, load_forest
 from ..ops.geometry import backproject
 from ..pipelines.local_map import CrfParams, LocalMapPipeline, MapNodeFrames
 from ..pipelines.single_frame import SingleFramePipeline
+from ..utils.calibration import Calibration
+from ..utils.config import Config
+from ..utils.labels import (
+    LayerCoding,
+    parse_color_codings,
+)
+from .camera import CameraBuffer, parse_name_from_topic
 
 log = logging.getLogger(__name__)
 

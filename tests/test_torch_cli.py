@@ -15,16 +15,16 @@ from rovinasemanticsegmentation_tpu.cli.evaluate import (
 )
 from rovinasemanticsegmentation_tpu.features.dataset import model_path_for
 from rovinasemanticsegmentation_tpu.models.forest import random_forest, save_forest
-from rovinasemanticsegmentation_tpu.utils.config import (
-    Config,
-    KeyNotFoundException,
-)
+from rovinasemanticsegmentation_tpu.utils.config import Config
 from rovinasemanticsegmentation_tpu.utils.imageio import load_color
 from rovinasemanticsegmentation_tpu_torch.cli import test as cli_test
 from rovinasemanticsegmentation_tpu_torch.cli import test_multi as cli_test_multi
 from rovinasemanticsegmentation_tpu_torch.cli.evaluate import (
     config_and_device,
     run_evaluation,
+)
+from rovinasemanticsegmentation_tpu_torch.utils.config import (
+    KeyNotFoundException,
 )
 
 from test_cli import build_dataset

@@ -38,6 +38,10 @@ from rovinasemanticsegmentation_tpu_torch.models.lattice import (
 from rovinasemanticsegmentation_tpu_torch.ops import forest_cuda, patches_cuda
 from rovinasemanticsegmentation_tpu_torch.ops import forest_staged_cuda
 from rovinasemanticsegmentation_tpu_torch.ops import patches_planar_cuda
+from rovinasemanticsegmentation_tpu_torch.ops.feature_rows import (
+    RowLayout,
+    tail_view,
+)
 from rovinasemanticsegmentation_tpu_torch.ops.patches import (
     extract_patches_plain,
     extract_patches_separable_plain,
@@ -111,6 +115,56 @@ def test_forest_kernel_equal(dev, trees, depth, feats):
     leaves, post = forest_cuda.forest_predict(xt, forest)
     assert forest_cuda.launches.value == before + 1
     want_leaves, want_post = forest_cuda.forest_predict_plain(xt, forest)
+    torch.cuda.synchronize()
+    assert torch.equal(leaves, want_leaves)
+    assert torch.equal(post, want_post)
+
+
+@pytest.mark.parametrize("stride,row0", [(1, 0), (2, 3), (5, 17)])
+def test_patches_kernel_into_packed_rows(dev, stride, row0):
+    """Kernel A writes a frame's patches into 384-byte packed rows from
+    ``row0`` as its plain version does, and leaves the other rows alone."""
+    rng = np.random.default_rng(10 + stride)
+    h, w, b, r = 61, 80, 77, 11
+    lab = torch.from_numpy(
+        rng.integers(0, 256, (h + 2 * b, w + 2 * b, 3), dtype=np.uint8)
+    ).to(dev)
+    gh, gw = -(-h // stride), -(-w // stride)
+    depth = rng.uniform(0.05, 9.0, (gh, gw)).astype(np.float32)
+    depth[rng.random((gh, gw)) < 0.1] = 0.0
+    depth_t = torch.from_numpy(depth).to(dev)
+    rows = torch.full((row0 + gh * gw + 3, 384), 0xAB, dtype=torch.uint8,
+                      device=dev)
+    want = rows.clone()
+    patches_cuda.extract_patches_into(lab, depth_t, b, r, stride, rows, row0)
+    patches_cuda.extract_patches_into_plain(lab, depth_t, b, r, stride, want,
+                                            row0)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, want)
+
+
+@pytest.mark.parametrize("points", [1, 63, 64, 65, 3001])
+def test_forest_kernel_on_packed_rows(dev, points):
+    """Kernel B on packed rows (patch bytes, float32 tail with NaNs) gives
+    the plain version's leaves and posteriors on the same float rows, for
+    full, partial and single tiles."""
+    rng = np.random.default_rng(points)
+    layout = RowLayout.packed(363, 3)
+    forest_np = _random_forest(rng, 4, 8, 366, [8, 9])
+    patch_split = forest_np.split_feature < 363
+    forest_np.threshold[patch_split] = rng.integers(
+        0, 256, int(patch_split.sum()))  # integer thresholds: x == thr occurs
+    forest = forest_from_numpy(forest_np, dev)
+    patch = rng.integers(0, 256, (points, 363), dtype=np.uint8)
+    tail = rng.normal(size=(points, 3)).astype(np.float32)
+    tail[::7, 1] = np.nan  # NaN goes left
+    rows = torch.zeros((points, layout.row_bytes), dtype=torch.uint8)
+    rows[:, :363] = torch.from_numpy(patch)
+    tail_view(rows, layout)[:, :3] = torch.from_numpy(tail)
+    feats = torch.from_numpy(
+        np.concatenate([patch.astype(np.float32), tail], axis=1)).to(dev)
+    leaves, post = forest_cuda.forest_predict_rows(rows.to(dev), layout, forest)
+    want_leaves, want_post = forest_cuda.forest_predict_plain(feats, forest)
     torch.cuda.synchronize()
     assert torch.equal(leaves, want_leaves)
     assert torch.equal(post, want_post)

@@ -178,6 +178,7 @@ def test_port_imports_without_jax():
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['rovinasemanticsegmentation_tpu'] = None\n"
         "import rovinasemanticsegmentation_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
@@ -200,6 +201,9 @@ def test_port_imports_without_jax():
         "scripts.exp_descent", "scripts.exp_patches",
         "fusion.unaries", "models.crf2d_device", "pipelines.streaming",
         "cli.evaluate", "cli.test", "cli.test_multi", "cli.dense_inference",
+        "utils.config", "utils.calibration", "utils.labels", "utils.imageio",
+        "utils.metrics", "features.dataset", "serve.camera", "native",
+        "ops.feature_rows",
     )} <= names
 
 
