@@ -83,11 +83,29 @@ or ALU) over that pipe's rate.
    21 labels, half of its annotation unknown, with both lattice builds on
    the card and on the CPU; card and CPU labels, and the two builds, must
    agree on >= 99.99% of the pixels; ms per build on the card (median of
-   3) and the vertex counts.
+   3) and the vertex counts;
+11. forest training (``training_phase``), the fixture forest's recipe
+   (``scripts/make_bench_forest.py``: 12 VGA frames through kernel A, ~1.45e5
+   samples x 366 features, 4 trees of depth <= 30): (a) the exact search
+   with device growth and (b) the binned search (256 bins), each trained
+   twice (the same forest both times), with the wall seconds of extraction
+   and training, samples per second, nodes per tree and the deepest leaf,
+   beside ``resources/bench_forest.dat``'s; (c) the card's trainer against
+   the CPU port on 2 frames (2 trees, depth <= 12): differing nodes, each
+   tree's first one a near-tie (``train/compare.py``), then the 12 frames'
+   features extracted on the CPU against the card's (differing values and
+   columns) and the card's forest trained on them; (d) a 13th frame of
+   the recipe through kernel B, equal to the plain descent, and the held-out
+   accuracy per layer beside the fixture's; (e) ``save_forest`` ->
+   ``load_forest`` with equal arrays; (f) a ``BoostedForestTrainer`` on a
+   subsample, card equal to CPU (weights, trees, votes). Kernels A and B
+   must launch; their launches here are the ``launches_training`` entries.
 
 The last lines are the card's name and power limit, one JSON object of
-per-kernel results, and ``{"ok": true, "device": {...}}``. Inputs and
-weights are made from fixed seeds; nothing here uses JAX.
+per-kernel results (``launches``: the serving run of phase 4 for A and B,
+the entry points of phase 6 for C'' and D''), and ``{"ok": true, "device":
+{...}}``. Inputs and weights are made from fixed seeds; nothing here uses
+JAX.
 """
 
 from __future__ import annotations
@@ -442,7 +460,7 @@ def run(card: str) -> dict:
     )
     from rovinasemanticsegmentation_tpu_torch.ops import forest_staged_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import patches_cuda
-    from rovinasemanticsegmentation_tpu_torch.ops import patches_planar_cuda
+    from rovinasemanticsegmentation_tpu_torch.ops import patches_separable_cuda
     from rovinasemanticsegmentation_tpu_torch.ops.patches import (
         extract_patches_plain,
         extract_patches_separable_into_plain,
@@ -498,7 +516,7 @@ def run(card: str) -> dict:
 
     counters = (patches_cuda.launches, patches_cuda.pack_launches,
                 forest_cuda.launches, forest_staged_cuda.launches,
-                patches_planar_cuda.launches)
+                patches_separable_cuda.launches)
 
     def reset_counts():
         for counter in counters:
@@ -619,7 +637,7 @@ def run(card: str) -> dict:
     def check_packed_d(lab, grid, s, row0):
         """Kernel D'' into packed rows from ``row0`` == kernel A's rows and
         the separable plain version's, the rows around untouched."""
-        got_rows = rows_by(patches_planar_cuda.extract_patches_planar_into,
+        got_rows = rows_by(patches_separable_cuda.extract_patches_separable_into,
                            lab, grid, s, row0)
         a_rows = rows_by(patches_cuda.extract_patches_into, lab, grid, s, row0)
         plain_rows = rows_by(extract_patches_separable_into_plain, lab, grid,
@@ -632,7 +650,7 @@ def run(card: str) -> dict:
               f"stride {s}")
         return int((got_rows.int() - plain_rows.int()).abs().max())
 
-    got_d = patches_planar_cuda.extract_patches_planar(
+    got_d = patches_separable_cuda.extract_patches_separable(
         padded, dgrid, 77, 11, STRIDE
     )
     want_d = extract_patches_separable_plain(padded, dgrid, 77, 11, STRIDE)
@@ -645,18 +663,18 @@ def run(card: str) -> dict:
                 for row0 in (0, 3 * p0 + 1))
     rows_d = torch.empty((p0, layout.row_bytes), dtype=torch.uint8,
                          device=dev)
-    launch_d, over_cap_d = patches_planar_cuda.launcher(
+    launch_d, over_cap_d = patches_separable_cuda.launcher(
         padded, dgrid, 77, 11, STRIDE, rows_d, 0)
     launch_d()
     torch.cuda.synchronize()
     blocks_over_cap = int(over_cap_d.item())
-    blocks_d = (-(-dgrid.shape[0] // patches_planar_cuda.TILE_ROWS)
-                * -(-dgrid.shape[1] // patches_planar_cuda.TILE_COLS))
+    blocks_d = (-(-dgrid.shape[0] // patches_separable_cuda.TILE_ROWS)
+                * -(-dgrid.shape[1] // patches_separable_cuda.TILE_COLS))
     ms_d = time_launch(launch_d, 50)
-    ms_d363 = time_launch(patches_planar_cuda.launcher(
+    ms_d363 = time_launch(patches_separable_cuda.launcher(
         padded, dgrid, 77, 11, STRIDE, out363.view(p0, pc), 0)[0], 50)
     wrapper_ms_d = time_cuda(
-        lambda: patches_planar_cuda.extract_patches_planar_into(
+        lambda: patches_separable_cuda.extract_patches_separable_into(
             padded, dgrid, 77, 11, STRIDE, rows_d, 0), 50
     )
     plain_ms_d = time_cuda(
@@ -672,7 +690,7 @@ def run(card: str) -> dict:
           f"{wrapper_ms_d:.4f} ms; bound {bound_d['bound_ms']:.4f} ms by "
           f"{bound_d['bound_by']}, {bound_d['bound_ms'] / ms_d:.1%} of it; "
           f"{blocks_over_cap} of {blocks_d} blocks over the "
-          f"{patches_planar_cuda.FOOTPRINT_CAP}-B footprint cap; separable "
+          f"{patches_separable_cuda.FOOTPRINT_CAP}-B footprint cap; separable "
           f"plain {plain_ms_d:.4f} ms ({card})")
     small = make_frames(np.random.default_rng(1), 1, 240, 320)[0]
     for s in (1, 5):
@@ -680,7 +698,7 @@ def run(card: str) -> dict:
         sp, sd = patch_inputs(srgb, sdepth, cfg, s)
         a = patches_cuda.extract_patches(sp, sd, 77, 11, s)
         b = extract_patches_plain(sp, sd, 77, 11, s)
-        d = patches_planar_cuda.extract_patches_planar(sp, sd, 77, 11, s)
+        d = patches_separable_cuda.extract_patches_separable(sp, sd, 77, 11, s)
         torch.cuda.synchronize()
         check(torch.equal(a, b), f"kernel A differs at 240x320 stride {s}")
         check(torch.equal(check_packed_a(sp, sd, s, 7),
@@ -693,7 +711,7 @@ def run(card: str) -> dict:
             check_packed_d(sp, sd, s, row0)
         print(f"phase 2b: kernel D'' == kernel A at 240x320 stride {s}, as "
               f"the patch tensor and in packed rows from rows 0 and 7")
-    results["patches_planar"] = dict(
+    results["patches_separable"] = dict(
         max_abs_err=err_d, ms=ms_d, wrapper_ms=wrapper_ms_d, ms_363=ms_d363,
         plain_ms=plain_ms_d, blocks_over_cap=blocks_over_cap,
         blocks=blocks_d, **bound_d
@@ -1081,7 +1099,7 @@ def run(card: str) -> dict:
     runs.append(exp_patches.main(["bench", "--reps", "20"]))
     launches = {
         "forest_descent_staged": forest_staged_cuda.launches.value,
-        "patches_planar": patches_planar_cuda.launches.value,
+        "patches_separable": patches_separable_cuda.launches.value,
     }
     for res in runs:
         check(res["parity"], f"{res['script']} ({res.get('rows', '')} "
@@ -1326,6 +1344,10 @@ def run(card: str) -> dict:
           f"device build {ms10[True]:.3f} ms, host build {ms10[False]:.3f} ms "
           f"per image on the card (median of 3) ({card})")
 
+    # ---- phase 11: forest training on the card
+    for name, k in training_phase(card, dev, reset_counts).items():
+        results[name]["launches_training"] = k
+
     # No single PyTorch call computes any of these functions, so no library
     # call is timed beside them.
     return {
@@ -1365,16 +1387,164 @@ def run(card: str) -> dict:
                 **results["forest_descent_staged"],
             },
             {
-                "name": "patches_planar",
+                "name": "patches_separable",
                 "route": "cuda",
                 "source": "rovinasemanticsegmentation_tpu_torch/csrc/"
-                          "patches_planar.cu",
+                          "patches_separable.cu",
                 "replaces": "scripts/exp_patches.py:49",
                 "library_ms": None,
-                **results["patches_planar"],
+                **results["patches_separable"],
             },
         ],
     }
+
+
+def training_phase(card: str, dev, reset_counts) -> dict:
+    """Phase 11: forest training on the card, the fixture forest's recipe
+    (``scripts/make_bench_forest.py``). -> launches of kernels A (with its
+    Lab pack) and B on this path, by kernel name."""
+    import torch
+
+    from rovinasemanticsegmentation_tpu_torch.models.forest import (
+        forest_from_numpy,
+        load_forest,
+        save_forest,
+    )
+    from rovinasemanticsegmentation_tpu_torch.ops import forest_cuda, patches_cuda
+    from rovinasemanticsegmentation_tpu_torch.scripts import (
+        make_bench_forest as recipe,
+    )
+    from rovinasemanticsegmentation_tpu_torch.train import compare
+    from rovinasemanticsegmentation_tpu_torch.train.boosting import (
+        BoostedForestTrainer,
+    )
+    from rovinasemanticsegmentation_tpu_torch.train.forest_trainer import (
+        ForestTrainer,
+    )
+
+    counts = list(recipe.CLASS_COUNTS)
+    gen = recipe.frames()
+    frames = [next(gen) for _ in range(recipe.FRAMES + 1)]  # the 13th held out
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def shape(f):
+        return f"nodes per tree {f.node_counts}, deepest leaf {f.max_depth}"
+
+    def same_forest(a, b):
+        return (a.node_counts == b.node_counts and a.max_depth == b.max_depth
+                and all(np.array_equal(getattr(a, k), getattr(b, k)) for k in (
+                    "split_feature", "threshold", "left_child", "leaf_hist")))
+
+    reset_counts()
+    # (a) the recipe: extraction through kernel A, exact search, device growth
+    (x, y), extract_s = timed(lambda: recipe.extract(frames[:recipe.FRAMES], dev))
+    n = len(x)
+    print(f"phase 11(a): extracted {n} labelled samples x {x.shape[1]} "
+          f"features from {recipe.FRAMES} VGA frames at stride "
+          f"{recipe.TRAIN_STRIDE} in {extract_s:.3f} s ({card})")
+    forests = {}
+    for part, mode, kw in (("a", "exact", {}), ("b", "binned", {"split_bins": 256})):
+        runs = []
+        for _ in range(2):
+            f, s = timed(lambda: ForestTrainer(recipe.trainer_config(**kw), dev)
+                         .learn(x, y, class_counts=counts, progress=False))
+            runs.append((f, s))
+        check(same_forest(runs[0][0], runs[1][0]),
+              f"two {mode} trainings on the card grew different forests")
+        forests[mode] = runs[0][0]
+        print(f"phase 11({part}): {mode} search, 4 trees, depth <= 30: "
+              f"{runs[0][1]:.3f} s, again {runs[1][1]:.3f} s (the same forest); "
+              f"{n / runs[1][1]:.0f} samples/s; {shape(runs[0][0])} ({card})")
+    fixture = load_forest(FIXTURE, class_counts=counts)
+    print(f"phase 11(a): resources/bench_forest.dat: {shape(fixture)}")
+
+    # (c) the card's trainer against the CPU port at a reduced size
+    x2, y2 = recipe.extract(frames[:2], dev)
+    cfg2 = recipe.trainer_config(num_trees=2, max_depth=12)
+    on_card, card_s = timed(lambda: ForestTrainer(cfg2, dev).learn(
+        x2, y2, class_counts=counts, progress=False))
+    x2_cpu = x2.cpu()
+    t0 = time.perf_counter()
+    on_cpu = ForestTrainer(cfg2, "cpu").learn(x2_cpu, y2, class_counts=counts,
+                                              progress=False)
+    cpu_s = time.perf_counter() - t0
+    ties = compare.near_ties(on_card, on_cpu, x2_cpu.numpy(), y2, cfg2)
+    differ = sum(int(compare.differing_nodes(on_card, on_cpu, t).sum())
+                 for t in range(on_card.num_trees))
+    print(f"phase 11(c): 2 frames ({len(x2)} samples), 2 trees, depth <= 12: "
+          f"card {card_s:.3f} s, CPU {cpu_s:.3f} s; {differ} of "
+          f"{sum(on_card.node_counts)} nodes differ; near-ties: {ties or 'none'}")
+    # The recipe's features extracted on the CPU, and the card's trainer on
+    # them: what separates the card's forest from the CPU's is extraction.
+    (x_cpu, y_cpu), cpu_extract_s = timed(
+        lambda: recipe.extract(frames[:recipe.FRAMES], "cpu"))
+    check(np.array_equal(y_cpu, y), "card and CPU extraction label differently")
+    differs = (x.cpu() != x_cpu).numpy()
+    cols = np.nonzero(differs.any(0))[0].tolist()
+    worst = float((x.cpu() - x_cpu).abs().max())
+    from_cpu = ForestTrainer(recipe.trainer_config(), dev).learn(
+        x_cpu.to(dev), y_cpu, class_counts=counts, progress=False)
+    print(f"phase 11(c): the 12 frames extracted on the CPU in "
+          f"{cpu_extract_s:.3f} s: {int(differs.sum())} values differ from the "
+          f"card's, in columns {cols}, by at most {worst:.6g}; the card trains "
+          f"on them {shape(from_cpu)}")
+
+    # (d) the held-out 13th frame through kernel B, against the plain descent
+    x13, y13 = recipe.extract(frames[recipe.FRAMES:], dev)
+    acc = {}
+    for name, f in (("card-trained", forests["exact"]), ("binned", forests["binned"]),
+                    ("bench_forest.dat", fixture)):
+        tf = forest_from_numpy(f, dev)
+        leaves, post = forest_cuda.forest_predict(x13, tf)
+        if name == "card-trained":
+            want_leaves, want_post = forest_cuda.forest_predict_plain(x13, tf)
+            torch.cuda.synchronize()
+            check(torch.equal(leaves, want_leaves) and torch.equal(post, want_post),
+                  "kernel B differs from the plain descent on the card-trained "
+                  "forest")
+        acc[name] = [float((post[:, l, :c].argmax(1).cpu().numpy() == y13[:, l]).mean())
+                     for l, c in enumerate(counts)]
+    print(f"phase 11(d): held-out frame ({len(x13)} samples): kernel B == plain "
+          f"descent on the card-trained forest; accuracy per layer "
+          + "; ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in acc.items()))
+
+    # (e) the card-trained forest through forest.dat and back
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "forest.dat")
+        save_forest(path, forests["exact"])
+        check(same_forest(load_forest(path, class_counts=counts), forests["exact"]),
+              "the card-trained forest changed through save_forest/load_forest")
+    print("phase 11(e): save_forest -> load_forest: equal arrays")
+
+    # (f) boosting on a subsample: card against CPU
+    sub, ysub = x[::10], y[::10, 0]
+    cfg_b = recipe.trainer_config(num_trees=3, max_depth=10)
+    (boosted, boost_s) = timed(lambda: BoostedForestTrainer(cfg_b, dev).learn(
+        sub, ysub, class_counts=counts[:1]))
+    boosted_cpu = BoostedForestTrainer(cfg_b, "cpu").learn(
+        sub.cpu(), ysub, class_counts=counts[:1])
+    check(np.array_equal(boosted.weights, boosted_cpu.weights)
+          and same_forest(boosted.forest, boosted_cpu.forest),
+          "boosting on the card and on the CPU grew different forests")
+    votes = boosted.class_log_posterior(sub)
+    check(torch.equal(votes.cpu(), boosted_cpu.class_log_posterior(sub.cpu())),
+          "boosted votes on the card differ from the CPU's")
+    launches = {"pack_lab": patches_cuda.pack_launches.value,
+                "patches": patches_cuda.launches.value,
+                "forest_descent": forest_cuda.launches.value}
+    print(f"phase 11(f): boosting, 3 trees on {len(sub)} samples: {boost_s:.3f} s "
+          f"on the card, weights {boosted.weights.tolist()}; card == CPU; "
+          f"votes equal")
+    for name, k in launches.items():
+        check(k > 0, f"kernel {name} was not launched by the training phase")
+    print(f"phase 11: launches on the training path {launches}")
+    return launches
 
 
 def main() -> int:

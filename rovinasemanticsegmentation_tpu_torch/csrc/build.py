@@ -24,7 +24,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = (
     "patches.cu", "forest_descent.cu", "forest_descent_staged.cu",
-    "patches_planar.cu",
+    "patches_separable.cu",
 )
 HEADERS = ("async_copy.cuh",)  # included by the sources; part of the hash
 # No --use_fast_math: the patch kernel's floorf(77 / (2 d)) must be IEEE
@@ -59,7 +59,7 @@ _SIGNATURES = {
                                      _I, _I, _I, _I, _P, _P],
     # packed, wp, depth, gh, gw, t0, t1, w0, w1, patch, reduce, stride, out,
     # row0, row_bytes, footprint_cap, over_cap, stream
-    "rovina_patches_planar": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+    "rovina_patches_separable": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                               _P, _I64, _I, _I, _P, _P],
 }
 

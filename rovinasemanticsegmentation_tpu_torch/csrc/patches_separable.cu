@@ -10,8 +10,7 @@
 // (acc + 2^21) >> 22; d <= 0 gives zeros. The TPU kernel DMA'd one band of
 // the packed int32 image (L | a << 8 | b << 16) into fast memory per block,
 // unpacked the channels there once, then ran a vertical row stage and a
-// horizontal column stage. (The file's name is historical: no planar copy of
-// the image is made.)
+// horizontal column stage.
 //
 // Input: kernel A's packed int32 image ([Hp, Wp], csrc/patches.cu
 // pack_lab_kernel). Output: packed feature rows, as kernel A writes them:
@@ -147,7 +146,7 @@ __device__ __forceinline__ void store_span(uint8_t* g, const uint8_t* s, int n)
         g[k] = s[k];
 }
 
-__global__ void __launch_bounds__(THREADS) patches_planar_kernel(
+__global__ void __launch_bounds__(THREADS) patches_separable_kernel(
     const int32_t* __restrict__ packed,  // [hp, wp] L | a << 8 | b << 16
     int wp,
     const float* __restrict__ depth,  // [gh, gw] metres, <= 0 masked
@@ -161,7 +160,7 @@ __global__ void __launch_bounds__(THREADS) patches_planar_kernel(
     int footprint_cap,  // bytes, a multiple of 16
     int* __restrict__ over_cap)
 {
-    // Shared memory (the wrapper's planar_shared_bytes): taps [TILE, r] int4,
+    // Shared memory (the wrapper's separable_shared_bytes): taps [TILE, r] int4,
     // the footprint (footprint_cap bytes), the tile's rows, half-sizes, hmax.
     extern __shared__ __align__(16) uint8_t smem[];
     int4* tap_s = reinterpret_cast<int4*>(smem);
@@ -245,7 +244,7 @@ __global__ void __launch_bounds__(THREADS) patches_planar_kernel(
 
 }  // namespace
 
-extern "C" int rovina_patches_planar(
+extern "C" int rovina_patches_separable(
     const void* packed, int wp, const void* depth, int gh, int gw,
     const void* t0, const void* t1, const void* w0, const void* w1,
     int patch, int r, int stride, void* out, long long row0, int row_bytes,
@@ -256,12 +255,12 @@ extern "C" int rovina_patches_planar(
         const int smem = 16 * TILE * r + footprint_cap
             + ((TILE * row_bytes + 15) & ~15) + 4 * TILE + 16;
         const cudaError_t e = cudaFuncSetAttribute(
-            patches_planar_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            patches_separable_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             smem);
         if (e != cudaSuccess) return (int)e;
         const dim3 grid((unsigned)((gw + TX - 1) / TX),
                         (unsigned)((gh + TY - 1) / TY));
-        patches_planar_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        patches_separable_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
             (const int32_t*)packed, wp, (const float*)depth, gh, gw,
             (const int32_t*)t0, (const int32_t*)t1, (const int32_t*)w0,
             (const int32_t*)w1, patch, r, stride, (uint8_t*)out, row0,

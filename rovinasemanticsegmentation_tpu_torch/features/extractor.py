@@ -238,7 +238,7 @@ class FeatureExtractor:
             self.config,
             stride,
         )
-        h, w = np.asarray(depth_mm).shape
+        h, w = depth_mm.shape[:2]  # host array or device tensor
         gys = np.arange(0, h, stride)
         gxs = np.arange(0, w, stride)
         ys = np.repeat(gys, gxs.size)

@@ -43,6 +43,23 @@ class Forest:
     max_depth: int  # deepest leaf over all trees
     multi_label: bool = True
 
+    @property
+    def num_trees(self) -> int:
+        return self.split_feature.shape[0]
+
+    @property
+    def num_layers(self) -> int:
+        return self.leaf_hist.shape[2]
+
+    def tree_view(self, t: int) -> "TreeArrays":
+        n = self.node_counts[t]
+        return TreeArrays(
+            split_feature=self.split_feature[t, :n],
+            threshold=self.threshold[t, :n],
+            left_child=self.left_child[t, :n],
+            leaf_hist=self.leaf_hist[t, :n],
+        )
+
 
 @dataclass
 class TreeArrays:
@@ -319,7 +336,7 @@ def sum_leaf_histograms_plain(
 
 
 # ======================================================================
-# Reference forest.dat binary codec (reading; writing comes with training)
+# Reference forest.dat binary codec
 # ======================================================================
 #
 # writeBinary layout (io.h:34-108):
@@ -335,9 +352,19 @@ def _read_i32(f: BinaryIO) -> int:
     return struct.unpack("<i", f.read(4))[0]
 
 
+def _write_i32(f: BinaryIO, v: int) -> None:
+    f.write(struct.pack("<i", v))
+
+
 def _read_vec(f: BinaryIO, dtype: np.dtype) -> np.ndarray:
     n = _read_i32(f)
     return np.frombuffer(f.read(n * dtype.itemsize), dtype=dtype).copy()
+
+
+def _write_vec(f: BinaryIO, arr: np.ndarray, dtype: np.dtype) -> None:
+    arr = np.asarray(arr, dtype=dtype)
+    _write_i32(f, len(arr))
+    f.write(arr.tobytes())
 
 
 def _read_nested2(f: BinaryIO) -> List[np.ndarray]:
@@ -371,9 +398,29 @@ def read_reference_tree(f: BinaryIO) -> RawTree:
     )
 
 
+def write_reference_tree(f: BinaryIO, tree: RawTree) -> None:
+    _write_vec(f, tree.split_features, np.dtype("<i4"))
+    _write_vec(f, tree.thresholds, np.dtype("<f4"))
+    _write_vec(f, tree.left_child, np.dtype("<i4"))
+    _write_i32(f, len(tree.histograms))
+    for h in tree.histograms:
+        _write_vec(f, h, np.dtype("<f4"))
+    _write_i32(f, len(tree.multi_histograms))
+    for layers in tree.multi_histograms:
+        _write_i32(f, len(layers))
+        for h in layers:
+            _write_vec(f, h, np.dtype("<f4"))
+
+
 def read_reference_forest(f: BinaryIO) -> List[RawTree]:
     count = _read_i32(f)
     return [read_reference_tree(f) for _ in range(count)]
+
+
+def write_reference_forest(f: BinaryIO, trees: Sequence[RawTree]) -> None:
+    _write_i32(f, len(trees))
+    for t in trees:
+        write_reference_tree(f, t)
 
 
 def _load_forest_native(
@@ -486,3 +533,99 @@ def load_forest(
             )
         )
     return build_forest(trees, counts, multi_label=multi)
+
+
+def save_forest(path: str, forest: Forest) -> None:
+    """Write a forest in the reference ``forest.dat`` format: leaves carry
+    their histograms (per layer for a multi-label forest), inner nodes none."""
+    raws: List[RawTree] = []
+    for t in range(forest.num_trees):
+        view = forest.tree_view(t)
+        n = len(view.split_feature)
+        is_leaf = view.left_child == 0
+        empty = np.zeros(0, dtype=np.float32)
+        if forest.multi_label:
+            histograms = [empty for _ in range(n)]
+            multi = [
+                [view.leaf_hist[v, li, :c].astype(np.float32)
+                 for li, c in enumerate(forest.class_counts)]
+                if is_leaf[v] else []
+                for v in range(n)
+            ]
+        else:
+            histograms = [
+                view.leaf_hist[v, 0, : forest.class_counts[0]].astype(np.float32)
+                if is_leaf[v] else empty
+                for v in range(n)
+            ]
+            multi = [[] for _ in range(n)]
+        raws.append(
+            RawTree(
+                split_features=view.split_feature,
+                thresholds=view.threshold,
+                left_child=view.left_child,
+                histograms=histograms,
+                multi_histograms=multi,
+            )
+        )
+    with open(path, "wb") as f:
+        write_reference_forest(f, raws)
+
+
+# ======================================================================
+# Synthetic forests (tests, benchmarks)
+# ======================================================================
+
+
+def random_forest(
+    rng: np.random.Generator,
+    num_trees: int,
+    depth: int,
+    num_features: int,
+    class_counts: Sequence[int],
+    max_nodes: Optional[int] = None,
+) -> Forest:
+    """A random forest for benchmarks and compile checks, drawn from ``rng``
+    in the same order as the reference package's ``random_forest``.
+
+    Splits random leaves until ``max_nodes`` (default: a complete tree of the
+    given depth); use ``max_nodes`` for deep trees, whose trained node
+    counts are far below 2^depth.
+    """
+    trees = []
+    c_max = max(class_counts)
+    for _ in range(num_trees):
+        split_feature = [0]
+        threshold = [0.0]
+        left_child = [0]
+        depths = [0]
+        leaves = [0]
+        target_nodes = max_nodes if max_nodes else 2 ** (depth + 1) - 1
+        while len(split_feature) < target_nodes and leaves:
+            idx = leaves.pop(rng.integers(len(leaves)))
+            if depths[idx] >= depth:
+                continue
+            left = len(split_feature)
+            for _ in range(2):
+                split_feature.append(0)
+                threshold.append(0.0)
+                left_child.append(0)
+                depths.append(depths[idx] + 1)
+            left_child[idx] = left
+            split_feature[idx] = int(rng.integers(num_features))
+            threshold[idx] = float(rng.normal())
+            leaves.extend([left, left + 1])
+        n = len(split_feature)
+        hist = rng.normal(size=(n, len(class_counts), c_max)).astype(np.float32)
+        hist *= (np.array(left_child) == 0).astype(np.float32)[:, None, None]
+        for li, c in enumerate(class_counts):
+            hist[:, li, c:] = 0.0
+        trees.append(
+            TreeArrays(
+                split_feature=np.array(split_feature, dtype=np.int32),
+                threshold=np.array(threshold, dtype=np.float32),
+                left_child=np.array(left_child, dtype=np.int32),
+                leaf_hist=hist,
+            )
+        )
+    return build_forest(trees, class_counts)

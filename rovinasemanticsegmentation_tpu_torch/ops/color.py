@@ -1,4 +1,5 @@
-"""8-bit Lab conversion, bit-exact with OpenCV's fixed-point BGR2Lab.
+"""8-bit Lab conversion, bit-exact with OpenCV's fixed-point BGR2Lab, and
+the training augmentations (brightness shift, horizontal flip).
 
 Counterpart of ``rovinasemanticsegmentation_tpu/ops/color.py`` (gather path
 only). The reference converts keyframes with ``cv::cvtColor(.., CV_BGR2Lab)``
@@ -115,3 +116,15 @@ def rgb_to_lab8(image: torch.Tensor, swap: bool = True) -> torch.Tensor:
     b_val = _descale(200 * (fy - fz) + (128 << _LAB_SHIFT2), _LAB_SHIFT2)
     out = torch.stack([l_val, a_val, b_val], dim=-1)
     return torch.clamp(out, 0, 255).to(torch.uint8)
+
+
+def adjust_brightness(image: torch.Tensor, delta: int) -> torch.Tensor:
+    """Saturating uint8 brightness shift: cv::Mat += scalar (train.cpp:124)."""
+    shifted = image.to(torch.int16) + int(delta)
+    return shifted.clamp(0, 255).to(torch.uint8)
+
+
+def hflip(image: torch.Tensor) -> torch.Tensor:
+    """Horizontal flip, cv::flip(im, 1) (train.cpp:132-141): the width axis
+    is the second-to-last of an [H, W, C] image, the last of an [H, W] one."""
+    return image.flip(-2 if image.dim() >= 3 else -1)

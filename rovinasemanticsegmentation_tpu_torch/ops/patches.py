@@ -11,8 +11,8 @@ taps, weights in 1/2048ths, rounding ``(acc + 2^21) >> 22``.
 
 :func:`extract_patches_plain` is the plain version of the CUDA kernel in
 ``csrc/patches.cu`` (wrapper: ``ops/patches_cuda.py``), and
-:func:`extract_patches_separable_plain` that of ``csrc/patches_planar.cu``
-(wrapper: ``ops/patches_planar_cuda.py``); all four read the same tap tables
+:func:`extract_patches_separable_plain` that of ``csrc/patches_separable.cu``
+(wrapper: ``ops/patches_separable_cuda.py``); all four read the same tap tables
 and are bit-identical. Both kernels write packed feature rows
 (``ops/feature_rows.py``); :func:`extract_patches_separable_into_plain`
 writes the separable version's patches into rows as the kernel does.
@@ -188,7 +188,7 @@ def extract_patches_separable_plain(
 ) -> torch.Tensor:  # [gh, gw, R, R, 3] uint8
     """Row stage, then column stage, on planar channels (kernel D's order).
 
-    The plain version of ``csrc/patches_planar.cu``: unpack to planar int32,
+    The plain version of ``csrc/patches_separable.cu``: unpack to planar int32,
     ``ri = wy0 img[y0_i, x_k] + wy1 img[y1_i, x_k]`` at the 2R column taps
     ``x_k`` (x0_j, x1_j interleaved), then ``(wx0 ri[x0_j] + wx1 ri[x1_j] +
     2^21) >> 22``. Every sum is exact in int32 (< 255 * 2^22), so it is

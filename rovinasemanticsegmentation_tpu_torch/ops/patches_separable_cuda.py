@@ -3,9 +3,9 @@ wrapper (D'').
 
 Replaces ``scripts/exp_patches.py`` (``_kernel_e`` via
 ``extract_patches_e``), which computes kernel A's function in two stages on
-a band of the packed image. On CUDA tensors :func:`extract_patches_planar_into`
+a band of the packed image. On CUDA tensors :func:`extract_patches_separable_into`
 packs the padded Lab image into int32 as kernel A does
-(``patches_cuda.pack_lab``) and launches ``csrc/patches_planar.cu``: each
+(``patches_cuda.pack_lab``) and launches ``csrc/patches_separable.cu``: each
 block copies its 4 x 8 grid points' image footprint into shared memory, runs
 a vertical row stage and a horizontal column stage from it, and writes the
 points' packed feature rows (``ops/feature_rows.py``) from ``row0``, zeros
@@ -13,7 +13,7 @@ after each patch. A block whose footprint exceeds ``FOOTPRINT_CAP`` bytes
 reads its taps from device memory in the same kernel and is counted. On CPU
 tensors it runs the plain version of the same stage order,
 ``ops/patches.py::extract_patches_separable_into_plain``.
-:func:`extract_patches_planar` is the ``[gh, gw, R, R, 3]`` view (rows of
+:func:`extract_patches_separable` is the ``[gh, gw, R, R, 3]`` view (rows of
 ``R*R*3`` bytes). All are bit-identical to kernel A and to
 ``extract_patches_plain``.
 """
@@ -46,7 +46,7 @@ TILE_ROWS, TILE_COLS = 4, 8  # grid points per block (csrc TY, TX)
 FOOTPRINT_CAP = 24 * 1024
 
 
-def planar_shared_bytes(reduce_size: int, row_bytes: int) -> int:
+def separable_shared_bytes(reduce_size: int, row_bytes: int) -> int:
     """Per block: R taps per point (int4), the footprint, the tile's rows
     (16-byte aligned), its half-sizes and their maximum."""
     tile = TILE_ROWS * TILE_COLS
@@ -63,7 +63,7 @@ def _check(padded_lab, depth_grid, patch_size, reduce_size, stride, rows,
         raise ValueError(f"reduce_size must be >= 1, got {r}")
     gh, gw = depth_grid.shape
     check_rows_out(rows, row0, gh * gw, 3 * r * r)
-    smem = planar_shared_bytes(r, rows.shape[1])
+    smem = separable_shared_bytes(r, rows.shape[1])
     if smem > MAX_SHARED_BYTES:
         raise ValueError(
             f"reduce_size {r} with {rows.shape[1]}-B rows needs {smem} B of "
@@ -73,7 +73,7 @@ def _check(padded_lab, depth_grid, patch_size, reduce_size, stride, rows,
         raise ValueError("the kernel's int32 pixel offsets need Hp * Wp < 2^31")
 
 
-def extract_patches_planar_into(
+def extract_patches_separable_into(
     padded_lab: torch.Tensor,  # [Hp, Wp, 3] uint8, border = patch_size
     depth_grid: torch.Tensor,  # [gh, gw] float32 metres (<= 0 masked)
     patch_size: int,
@@ -96,19 +96,19 @@ def extract_patches_planar_into(
     launch()
 
 
-def extract_patches_planar(
+def extract_patches_separable(
     padded_lab: torch.Tensor,  # [Hp, Wp, 3] uint8, border = patch_size
     depth_grid: torch.Tensor,  # [gh, gw] float32 metres (<= 0 masked)
     patch_size: int,
     reduce_size: int,
     stride: int,
 ) -> torch.Tensor:  # [gh, gw, R, R, 3] uint8
-    """:func:`extract_patches_planar_into` rows of ``R*R*3`` bytes."""
+    """:func:`extract_patches_separable_into` rows of ``R*R*3`` bytes."""
     gh, gw = depth_grid.shape
     r = reduce_size
     out = torch.empty((gh * gw, 3 * r * r), dtype=torch.uint8,
                       device=padded_lab.device)
-    extract_patches_planar_into(padded_lab, depth_grid, patch_size, r, stride,
+    extract_patches_separable_into(padded_lab, depth_grid, patch_size, r, stride,
                                 out, 0)
     return out.reshape(gh, gw, r, r, 3)
 
@@ -137,13 +137,13 @@ def launcher(
             return
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            err = lib.rovina_patches_planar(
+            err = lib.rovina_patches_separable(
                 packed.data_ptr(), packed.shape[1], depth.data_ptr(), gh, gw,
                 t0.data_ptr(), t1.data_ptr(), w0.data_ptr(), w1.data_ptr(),
                 patch_size, reduce_size, stride, rows.data_ptr(), row0,
                 rows.shape[1], FOOTPRINT_CAP, over_cap.data_ptr(), stream,
             )
-        check_launch("rovina_patches_planar", err)
+        check_launch("rovina_patches_separable", err)
         launches.add()
 
     return launch, over_cap

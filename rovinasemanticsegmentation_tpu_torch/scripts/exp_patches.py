@@ -3,7 +3,7 @@
 Port of ``scripts/exp_patches.py`` (variant E of the TPU patch kernel: a
 band of the packed image in fast memory, the channels unpacked once, a
 vertical row stage, then a horizontal column stage). D''
-(``ops/patches_planar_cuda.py``) must be bit-equal to kernel A
+(``ops/patches_separable_cuda.py``) must be bit-equal to kernel A
 (``ops/patches_cuda.py``), to the gather plain version
 ``extract_patches_plain`` and to the separable plain version
 ``extract_patches_separable_plain``, both on the ``[gh, gw, R, R, 3]`` patch
@@ -38,7 +38,7 @@ import torch
 from ..device import resolve_device
 from ..ops.color import rgb_to_lab8
 from ..ops.geometry import millimetres_to_metres
-from ..ops import patches_planar_cuda
+from ..ops import patches_separable_cuda
 from ..ops.feature_rows import RowLayout
 from ..ops.patches import (
     extract_patches_plain,
@@ -51,9 +51,9 @@ from ..ops.patches_cuda import (
     extract_patches_into,
     extract_patches_into_plain,
 )
-from ..ops.patches_planar_cuda import (
-    extract_patches_planar,
-    extract_patches_planar_into,
+from ..ops.patches_separable_cuda import (
+    extract_patches_separable,
+    extract_patches_separable_into,
 )
 from . import card_description, median_ms
 
@@ -104,7 +104,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     versions = {
         "A": extract_patches,
-        "planar": extract_patches_planar,
+        "separable": extract_patches_separable,
         "plain": extract_patches_plain,
         "separable_plain": extract_patches_separable_plain,
     }
@@ -117,7 +117,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     layout = RowLayout.packed(3 * r * r, 3)
     row_versions = {
         "A": extract_patches_into,
-        "planar": extract_patches_planar_into,
+        "separable": extract_patches_separable_into,
         "plain": extract_patches_into_plain,
         "separable_plain": extract_patches_separable_into_plain,
     }
@@ -156,21 +156,21 @@ def main(argv: Optional[List[str]] = None) -> dict:
                              lambda i: dgrid * (1.0 + i * 1e-5), args.reps)
 
         ms = {"A": [time(versions["A"])]}
-        for k in ("planar", "plain", "separable_plain"):
+        for k in ("separable", "plain", "separable_plain"):
             ms[k] = time(versions[k])
         ms["A"].append(time(versions["A"]))
         result["ms"] = ms
         ms_rows = {"A": [time_rows(row_versions["A"])]}
-        for k in ("planar", "plain", "separable_plain"):
+        for k in ("separable", "plain", "separable_plain"):
             ms_rows[k] = time_rows(row_versions[k])
-        launch, over_cap = patches_planar_cuda.launcher(
+        launch, over_cap = patches_separable_cuda.launcher(
             lab, dgrid, b, r, s, fill(), ROW0)
         launch()
         ms_rows["A"].append(time_rows(row_versions["A"]))
         result["ms_rows"] = ms_rows
-        result["planar_blocks"] = (-(-gh // patches_planar_cuda.TILE_ROWS)
-                                   * -(-gw // patches_planar_cuda.TILE_COLS))
-        result["planar_blocks_over_cap"] = int(over_cap.item())
+        result["separable_blocks"] = (-(-gh // patches_separable_cuda.TILE_ROWS)
+                                   * -(-gw // patches_separable_cuda.TILE_COLS))
+        result["separable_blocks_over_cap"] = int(over_cap.item())
     print(json.dumps(result))
     return result
 

@@ -1,13 +1,14 @@
 """The port's own copies of the JAX package's jax-free modules.
 
 The port imports nothing of ``rovinasemanticsegmentation_tpu``, so it keeps
-copies of ``utils/{config,calibration,labels,imageio,metrics}.py``,
-``features/dataset.py``, ``serve/camera.py`` and ``native/``. Each copy is
+copies of ``utils/{config,calibration,labels,imageio,metrics,cvio,
+data_io}.py``, ``features/dataset.py``, ``serve/camera.py`` and ``native/``. Each copy is
 held here against its original on the same inputs; the native library of
 the port builds from the port's own C++ sources.
 """
 
 import ast
+import io
 import json
 import os
 
@@ -19,6 +20,8 @@ from rovinasemanticsegmentation_tpu.features import dataset as j_dataset
 from rovinasemanticsegmentation_tpu.serve import camera as j_camera
 from rovinasemanticsegmentation_tpu.utils import calibration as j_calibration
 from rovinasemanticsegmentation_tpu.utils import config as j_config
+from rovinasemanticsegmentation_tpu.utils import cvio as j_cvio
+from rovinasemanticsegmentation_tpu.utils import data_io as j_data_io
 from rovinasemanticsegmentation_tpu.utils import imageio as j_imageio
 from rovinasemanticsegmentation_tpu.utils import labels as j_labels
 from rovinasemanticsegmentation_tpu.utils import metrics as j_metrics
@@ -27,6 +30,8 @@ from rovinasemanticsegmentation_tpu_torch.features import dataset as t_dataset
 from rovinasemanticsegmentation_tpu_torch.serve import camera as t_camera
 from rovinasemanticsegmentation_tpu_torch.utils import calibration as t_calibration
 from rovinasemanticsegmentation_tpu_torch.utils import config as t_config
+from rovinasemanticsegmentation_tpu_torch.utils import cvio as t_cvio
+from rovinasemanticsegmentation_tpu_torch.utils import data_io as t_data_io
 from rovinasemanticsegmentation_tpu_torch.utils import imageio as t_imageio
 from rovinasemanticsegmentation_tpu_torch.utils import labels as t_labels
 from rovinasemanticsegmentation_tpu_torch.utils import metrics as t_metrics
@@ -239,3 +244,54 @@ def test_native_builds_from_the_port_sources():
     path = t_native._library_path()
     assert os.path.dirname(path) == os.path.join(PORT, "csrc", "_build")
     assert t_native.get_lib() is not None and os.path.exists(path)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32, np.int8, np.uint8])
+def test_cvio_copy_reads_and_writes_the_same(tmp_path, dtype):
+    rng = np.random.default_rng(5)
+    arr = (rng.random((5, 7, 3)) * 100).astype(dtype)
+    t_cvio.save_mat(str(tmp_path / "t.bin"), arr)
+    j_cvio.save_mat(str(tmp_path / "j.bin"), arr)
+    assert (tmp_path / "t.bin").read_bytes() == (tmp_path / "j.bin").read_bytes()
+    out = t_cvio.read_mat(str(tmp_path / "j.bin"))
+    np.testing.assert_array_equal(out, j_cvio.read_mat(str(tmp_path / "t.bin")))
+    assert out.dtype == arr.dtype
+    ids = rng.integers(0, 1 << 24, (6, 9)).astype(np.int32)
+    rgb = t_cvio.segment_id_to_rgb(ids)
+    np.testing.assert_array_equal(rgb, j_cvio.segment_id_to_rgb(ids))
+    np.testing.assert_array_equal(t_cvio.rgb_to_segment_id(rgb), ids)
+    data = np.linspace(0, 1, 12).reshape(3, 4)
+    for fn in ("save_heatmap", "save_gray"):
+        getattr(t_cvio, fn)(str(tmp_path / "t.png"), data)
+        getattr(j_cvio, fn)(str(tmp_path / "j.png"), data)
+        np.testing.assert_array_equal(
+            t_imageio.load_color(str(tmp_path / "t.png")),
+            j_imageio.load_color(str(tmp_path / "j.png")))
+
+
+def test_data_io_copy_reads_and_writes_the_same():
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(10, 4)).astype(np.float32)
+    y = rng.integers(0, 3, 10).astype(np.int32)
+    for writer, reader in (("write_csv_dataset", "read_csv_dataset"),
+                           ("write_libsvm_dataset", "read_libsvm_dataset")):
+        bufs = [io.StringIO(), io.StringIO()]
+        getattr(t_data_io, writer)(bufs[0], x, y)
+        getattr(j_data_io, writer)(bufs[1], x, y)
+        assert bufs[0].getvalue() == bufs[1].getvalue()
+        got = getattr(t_data_io, reader)(io.StringIO(bufs[1].getvalue()))
+        want = getattr(j_data_io, reader)(io.StringIO(bufs[0].getvalue()))
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    text = "1.0,cat,2.0\n3.0,dog,4.0\n"
+    for a, b in zip(t_data_io.read_csv_dataset(io.StringIO(text), class_column_index=1),
+                    j_data_io.read_csv_dataset(io.StringIO(text), class_column_index=1)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    bufs = [io.BytesIO(), io.BytesIO()]
+    t_data_io.write_libforest_dataset(bufs[0], x, y)
+    j_data_io.write_libforest_dataset(bufs[1], x, y)
+    assert bufs[0].getvalue() == bufs[1].getvalue()
+    bufs[1].seek(0)
+    got = t_data_io.read_libforest_dataset(bufs[1])
+    np.testing.assert_array_equal(got[0], x)
+    np.testing.assert_array_equal(got[1], y)

@@ -38,7 +38,7 @@ from rovinasemanticsegmentation_tpu_torch.models.lattice import (
 )
 from rovinasemanticsegmentation_tpu_torch.ops import forest_cuda, patches_cuda
 from rovinasemanticsegmentation_tpu_torch.ops import forest_staged_cuda
-from rovinasemanticsegmentation_tpu_torch.ops import patches_planar_cuda
+from rovinasemanticsegmentation_tpu_torch.ops import patches_separable_cuda
 from rovinasemanticsegmentation_tpu_torch.ops.feature_rows import (
     RowLayout,
     permute_rows,
@@ -178,7 +178,7 @@ def test_forest_kernel_on_packed_rows(dev, points):
     (1, 40, 52, 15, 5), (2, 61, 80, 77, 11), (3, 50, 64, 77, 11),
     (5, 96, 128, 77, 11), (2, 33, 45, 21, 7),
 ])
-def test_planar_patches_kernel_bit_exact(dev, stride, h, w, b, r):
+def test_separable_patches_kernel_bit_exact(dev, stride, h, w, b, r):
     rng = np.random.default_rng(10 + stride)
     lab = torch.from_numpy(
         rng.integers(0, 256, (h + 2 * b, w + 2 * b, 3), dtype=np.uint8)
@@ -187,9 +187,9 @@ def test_planar_patches_kernel_bit_exact(dev, stride, h, w, b, r):
     depth = rng.uniform(0.05, 9.0, (gh, gw)).astype(np.float32)
     depth[rng.random((gh, gw)) < 0.1] = 0.0
     depth_t = torch.from_numpy(depth).to(dev)
-    before = patches_planar_cuda.launches.value
-    got = patches_planar_cuda.extract_patches_planar(lab, depth_t, b, r, stride)
-    assert patches_planar_cuda.launches.value == before + 1
+    before = patches_separable_cuda.launches.value
+    got = patches_separable_cuda.extract_patches_separable(lab, depth_t, b, r, stride)
+    assert patches_separable_cuda.launches.value == before + 1
     want = extract_patches_plain(lab, depth_t, b, r, stride)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
@@ -280,7 +280,7 @@ def _blocks_over_cap(depth, patch, stride):
     d = np.maximum(depth, np.float32(1e-6))
     half = np.minimum(np.floor(np.float32(patch) / (np.float32(2) * d)), patch)
     half = np.where(depth > 0, half, -1).astype(np.int64)
-    ty, tx = patches_planar_cuda.TILE_ROWS, patches_planar_cuda.TILE_COLS
+    ty, tx = patches_separable_cuda.TILE_ROWS, patches_separable_cuda.TILE_COLS
     n = 0
     for y0 in range(0, gh, ty):
         for x0 in range(0, gw, tx):
@@ -288,7 +288,7 @@ def _blocks_over_cap(depth, patch, stride):
             hmax = int(tile.max())
             fh = (tile.shape[0] - 1) * stride + 2 * hmax + 1
             fw = (tile.shape[1] - 1) * stride + 2 * hmax + 1
-            n += hmax >= 0 and 4 * fh * fw > patches_planar_cuda.FOOTPRINT_CAP
+            n += hmax >= 0 and 4 * fh * fw > patches_separable_cuda.FOOTPRINT_CAP
     return n
 
 
@@ -298,7 +298,7 @@ def _blocks_over_cap(depth, patch, stride):
     (2, 5, 384, 0.6, 1.1),  # every block reads its taps from device memory
     (2, 0, 384, 2.0, 9.0),  # every footprint fits
 ])
-def test_planar_patches_kernel_into_packed_rows(dev, stride, row0, row_bytes,
+def test_separable_patches_kernel_into_packed_rows(dev, stride, row0, row_bytes,
                                                 near, far):
     """D'' writes a frame's patches into rows from ``row0`` as kernel A and
     the plain versions do, leaves the other rows alone, and counts the blocks
@@ -316,11 +316,11 @@ def test_planar_patches_kernel_into_packed_rows(dev, stride, row0, row_bytes,
     rows = torch.full((row0 + gh * gw + 3, row_bytes), 0xAB,
                       dtype=torch.uint8, device=dev)
     want_a, want_plain = rows.clone(), rows.clone()
-    launch, over_cap = patches_planar_cuda.launcher(
+    launch, over_cap = patches_separable_cuda.launcher(
         lab, depth_t, b, r, stride, rows, row0)
-    before = patches_planar_cuda.launches.value
+    before = patches_separable_cuda.launches.value
     launch()
-    assert patches_planar_cuda.launches.value == before + 1
+    assert patches_separable_cuda.launches.value == before + 1
     patches_cuda.extract_patches_into(lab, depth_t, b, r, stride, want_a, row0)
     extract_patches_separable_into_plain(lab, depth_t, b, r, stride,
                                          want_plain, row0)
@@ -355,14 +355,14 @@ def test_kernels_reject_bad_inputs(dev):
         staged(torch.zeros((5, 10)), forest, 10)  # CPU input
     with pytest.raises(ValueError):  # more shared memory than a block has
         staged(torch.zeros((5, 600), device=dev), forest, 600, 128)
-    planar = patches_planar_cuda.extract_patches_planar
+    separable = patches_separable_cuda.extract_patches_separable
     depth = torch.ones((4, 4), device=dev)
     with pytest.raises(ValueError):
-        planar(lab, depth.double(), 15, 5, 2)
+        separable(lab, depth.double(), 15, 5, 2)
     with pytest.raises(ValueError):  # image too small for a 20-pixel border
-        planar(lab, depth, 20, 5, 2)
+        separable(lab, depth, 20, 5, 2)
     with pytest.raises(ValueError):  # R = 60 needs too much shared memory
-        planar(torch.zeros((40, 40, 3), dtype=torch.uint8, device=dev),
+        separable(torch.zeros((40, 40, 3), dtype=torch.uint8, device=dev),
                depth, 5, 60, 2)
 
 
@@ -449,3 +449,73 @@ def test_dense_crf_map_same_on_every_run(dev):
     assert q[0].device.type == "cuda" and torch.equal(q[0], q[1])
     torch.testing.assert_close(q[0].cpu(), crf("cpu").inference(5),
                                rtol=2e-4, atol=2e-5)
+
+
+def _training_data(n=3000, d=20, seed=0):
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.normal(size=(n, d)) * 8).astype(np.float32)
+    y = np.stack([(x[:, 0] > 0) + 2 * (x[:, 3] > 2),
+                  (x[:, 1] + x[:, 2] > 0).astype(np.int64)], 1).astype(np.int32)
+    return x, y
+
+
+@pytest.mark.parametrize("mode", [{}, {"split_bins": 64},
+                                  {"device_growth": False}])
+def test_trainer_on_card_equals_cpu(dev, mode):
+    """Same draws, integer counts: the card grows the CPU's trees. (Both
+    are torch, with torch's log2 on each side; a differing tree would need a
+    near-tie that the two devices' log2 round differently.)"""
+    from rovinasemanticsegmentation_tpu_torch.train.forest_trainer import (
+        ForestTrainer,
+        TrainerConfig,
+    )
+
+    x, y = _training_data()
+    cfg = TrainerConfig(num_trees=2, max_depth=12, min_split_examples=10,
+                        seed=3, **mode)
+    on_card = ForestTrainer(cfg, dev).learn(torch.from_numpy(x).to(dev), y,
+                                            class_counts=[4, 2], progress=False)
+    on_cpu = ForestTrainer(cfg, "cpu").learn(x, y, class_counts=[4, 2],
+                                             progress=False)
+    assert on_card.node_counts == on_cpu.node_counts
+    for f in ("split_feature", "threshold", "left_child"):
+        np.testing.assert_array_equal(getattr(on_card, f), getattr(on_cpu, f))
+    np.testing.assert_allclose(on_card.leaf_hist, on_cpu.leaf_hist, rtol=1e-6,
+                               atol=2.4e-7)
+
+
+def test_trainer_on_card_same_on_every_run(dev):
+    from rovinasemanticsegmentation_tpu_torch.train.forest_trainer import (
+        ForestTrainer,
+        TrainerConfig,
+    )
+
+    x, y = _training_data(seed=1)
+    xd = torch.from_numpy(x).to(dev)
+    cfg = TrainerConfig(num_trees=3, max_depth=15, min_split_examples=5,
+                        seed=4)
+    a, b = (ForestTrainer(cfg, dev).learn(xd, y, class_counts=[4, 2],
+                                          progress=False) for _ in range(2))
+    for f in ("split_feature", "threshold", "left_child", "leaf_hist"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+def test_boosted_votes_on_card_equal_cpu(dev):
+    from rovinasemanticsegmentation_tpu_torch.train.boosting import (
+        BoostedForestTrainer,
+    )
+    from rovinasemanticsegmentation_tpu_torch.train.forest_trainer import (
+        TrainerConfig,
+    )
+
+    x, y = _training_data(n=1500, seed=2)
+    cfg = TrainerConfig(num_trees=3, max_depth=5, min_split_examples=5, seed=2)
+    on_card = BoostedForestTrainer(cfg, dev).learn(x, y[:, 0], class_counts=[4])
+    on_cpu = BoostedForestTrainer(cfg, "cpu").learn(x, y[:, 0], class_counts=[4])
+    np.testing.assert_array_equal(on_card.weights, on_cpu.weights)
+    before = forest_cuda.launches.value
+    votes = on_card.class_log_posterior(torch.from_numpy(x).to(dev))
+    assert forest_cuda.launches.value == before + 1
+    np.testing.assert_array_equal(
+        votes.cpu().numpy(),
+        on_cpu.class_log_posterior(torch.from_numpy(x)).numpy())

@@ -4,7 +4,7 @@ C is the chunk-skip forest descent (``scripts/exp_descent.py``), D the
 row-stage patch kernel (``scripts/exp_patches.py``); both run here in
 interpret mode. Their ports are kernels C'' (``ops/forest_staged_cuda.py``,
 on float32 and on packed feature rows) and D''
-(``ops/patches_planar_cuda.py``, into the patch tensor and into packed
+(``ops/patches_separable_cuda.py``, into the patch tensor and into packed
 rows), whose wrappers run the plain versions on CPU tensors. The JAX scripts are imported with ``parity`` in
 ``sys.argv`` (their import-time CPU pin), and the environment variables they
 edit are restored after each test.
@@ -33,7 +33,7 @@ from rovinasemanticsegmentation_tpu.ops.patches import (
 from rovinasemanticsegmentation_tpu_torch.models import forest as tforest
 from rovinasemanticsegmentation_tpu_torch.ops import forest_staged_cuda
 from rovinasemanticsegmentation_tpu_torch.ops import patches, patches_cuda
-from rovinasemanticsegmentation_tpu_torch.ops import patches_planar_cuda
+from rovinasemanticsegmentation_tpu_torch.ops import patches_separable_cuda
 from rovinasemanticsegmentation_tpu_torch.ops.color import rgb_to_lab8
 from rovinasemanticsegmentation_tpu_torch.ops.feature_rows import (
     RowLayout,
@@ -436,7 +436,7 @@ class TestPlanarPatches:
         layout = RowLayout.packed(pc, 3)
         rows = torch.full((row0 + n + 4, layout.row_bytes), 0xAB,
                           dtype=torch.uint8)
-        patches_planar_cuda.extract_patches_planar_into(lab, dgrid, b, r, s,
+        patches_separable_cuda.extract_patches_separable_into(lab, dgrid, b, r, s,
                                                         rows, row0)
         np.testing.assert_array_equal(
             rows[row0 : row0 + n, :pc].numpy(), want.reshape(n, pc))
@@ -450,16 +450,16 @@ class TestPlanarPatches:
         rows = torch.full((dgrid.numel() + 9, layout.row_bytes), 0x5C,
                           dtype=torch.uint8)
         want = rows.clone()
-        before = patches_planar_cuda.launches.value
-        patches_planar_cuda.extract_patches_planar_into(lab, dgrid, b, r, s,
+        before = patches_separable_cuda.launches.value
+        patches_separable_cuda.extract_patches_separable_into(lab, dgrid, b, r, s,
                                                         rows, 9)
         patches_cuda.extract_patches_into_plain(lab, dgrid, b, r, s, want, 9)
         assert torch.equal(rows, want)
-        assert patches_planar_cuda.launches.value == before
+        assert patches_separable_cuda.launches.value == before
 
     def test_into_rows_bad_inputs_rejected(self):
         _, _, lab, dgrid = _frame(5, 20, 28, 9, 2)
-        into = patches_planar_cuda.extract_patches_planar_into
+        into = patches_separable_cuda.extract_patches_separable_into
         n = dgrid.numel()
         rows = torch.zeros((n + 2, 32), dtype=torch.uint8)
         with pytest.raises(ValueError):  # rows past the buffer's end
@@ -475,30 +475,30 @@ class TestPlanarPatches:
         _, _, lab, dgrid = _frame(10 + s, 40, 56, b, s)
         assert (dgrid.numpy() == 0).mean() > 0.005  # 2% holes
         want = patches.extract_patches_plain(lab, dgrid, b, r, s)
-        got = patches_planar_cuda.extract_patches_planar(lab, dgrid, b, r, s)
+        got = patches_separable_cuda.extract_patches_separable(lab, dgrid, b, r, s)
         assert torch.equal(got, want)
 
     def test_wrapper_on_cpu_runs_plain_without_launch(self):
         _, _, lab, dgrid = _frame(3, 20, 28, 9, 2)
-        before = patches_planar_cuda.launches.value
-        got = patches_planar_cuda.extract_patches_planar(lab, dgrid, 9, 3, 2)
+        before = patches_separable_cuda.launches.value
+        got = patches_separable_cuda.extract_patches_separable(lab, dgrid, 9, 3, 2)
         want = patches.extract_patches_separable_plain(lab, dgrid, 9, 3, 2)
         assert torch.equal(got, want)
-        assert patches_planar_cuda.launches.value == before
+        assert patches_separable_cuda.launches.value == before
 
     def test_bad_inputs_rejected(self):
         _, _, lab, dgrid = _frame(4, 20, 28, 9, 2)
-        planar = patches_planar_cuda.extract_patches_planar
+        separable = patches_separable_cuda.extract_patches_separable
         with pytest.raises(ValueError):  # float64 depth
-            planar(lab, dgrid.double(), 9, 3, 2)
+            separable(lab, dgrid.double(), 9, 3, 2)
         with pytest.raises(ValueError):  # image too small for the grid
-            planar(lab[:-2], dgrid, 9, 3, 2)
+            separable(lab[:-2], dgrid, 9, 3, 2)
         with pytest.raises(ValueError):  # reduce size 0
-            planar(lab, dgrid, 9, 0, 2)
+            separable(lab, dgrid, 9, 0, 2)
         with pytest.raises(ValueError):  # R = 60: too much shared memory
-            planar(lab, dgrid, 9, 60, 2)
+            separable(lab, dgrid, 9, 60, 2)
         with pytest.raises(ValueError, match="unsupported device"):
-            planar(lab.to("meta"), dgrid.to("meta"), 9, 3, 2)
+            separable(lab.to("meta"), dgrid.to("meta"), 9, 3, 2)
 
 
 class TestEntryPoints:
@@ -530,9 +530,9 @@ class TestEntryPoints:
         assert result["parity"] is True
         assert result["shape"] == [32, 48, 7, 7, 3]
         assert set(result["equal_to_plain"]) == {
-            "A", "planar", "plain", "separable_plain"}
+            "A", "separable", "plain", "separable_plain"}
         assert result["rows_equal_to_plain"] == {
-            "A": True, "planar": True, "plain": True, "separable_plain": True}
+            "A": True, "separable": True, "plain": True, "separable_plain": True}
         assert result["row_bytes"] == 160 and result["row0"] == 3
         assert '"parity": true' in capsys.readouterr().out
 

@@ -197,7 +197,10 @@ def test_port_imports_without_jax():
     assert len(names) >= 20
     pkg = "rovinasemanticsegmentation_tpu_torch."
     assert {pkg + m for m in (
-        "ops.forest_staged_cuda", "ops.patches_planar_cuda",
+        "ops.forest_staged_cuda", "ops.patches_separable_cuda",
+        "train.random", "train.forest_trainer", "train.boosting",
+        "models.tools", "cli.train", "utils.checkpoint", "utils.cvio",
+        "utils.data_io", "scripts.make_bench_forest",
         "scripts.exp_descent", "scripts.exp_patches",
         "fusion.unaries", "models.crf2d_device", "pipelines.streaming",
         "cli.evaluate", "cli.test", "cli.test_multi", "cli.dense_inference",
