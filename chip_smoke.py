@@ -86,15 +86,17 @@ or ALU) over that pipe's rate.
    3) and the vertex counts;
 11. forest training (``training_phase``), the fixture forest's recipe
    (``scripts/make_bench_forest.py``: 12 VGA frames through kernel A, ~1.45e5
-   samples x 366 features, 4 trees of depth <= 30): (a) the exact search
+   samples x 366 features, 4 trees of depth <= 30), after kernel A bit-exact
+   with its plain version on one of its frames at stride 5: (a) the exact search
    with device growth and (b) the binned search (256 bins), each trained
    twice (the same forest both times), with the wall seconds of extraction
    and training, samples per second, nodes per tree and the deepest leaf,
    beside ``resources/bench_forest.dat``'s; (c) the card's trainer against
    the CPU port on 2 frames (2 trees, depth <= 12): differing nodes, each
    tree's first one a near-tie (``train/compare.py``), then the 12 frames'
-   features extracted on the CPU against the card's (differing values and
-   columns) and the card's forest trained on them; (d) a 13th frame of
+   features extracted on the CPU against the card's (the patch bytes must
+   be equal; differing values and columns) and the card's forest trained on
+   them; (d) a 13th frame of
    the recipe through kernel B, equal to the plain descent, and the held-out
    accuracy per layer beside the fixture's; (e) ``save_forest`` ->
    ``load_forest`` with equal arrays; (f) a ``BoostedForestTrainer`` on a
@@ -1405,12 +1407,20 @@ def training_phase(card: str, dev, reset_counts) -> dict:
     Lab pack) and B on this path, by kernel name."""
     import torch
 
+    from rovinasemanticsegmentation_tpu_torch.features.extractor import (
+        FeatureConfig,
+        feature_row_layout,
+        patch_inputs,
+    )
     from rovinasemanticsegmentation_tpu_torch.models.forest import (
         forest_from_numpy,
         load_forest,
         save_forest,
     )
     from rovinasemanticsegmentation_tpu_torch.ops import forest_cuda, patches_cuda
+    from rovinasemanticsegmentation_tpu_torch.ops.patches import (
+        extract_patches_plain,
+    )
     from rovinasemanticsegmentation_tpu_torch.scripts import (
         make_bench_forest as recipe,
     )
@@ -1440,6 +1450,26 @@ def training_phase(card: str, dev, reset_counts) -> dict:
         return (a.node_counts == b.node_counts and a.max_depth == b.max_depth
                 and all(np.array_equal(getattr(a, k), getattr(b, k)) for k in (
                     "split_feature", "threshold", "left_child", "leaf_hist")))
+
+    # Kernel A at this path's shape (a VGA frame at the training stride)
+    # against its plain version, before the counts are set to 0.
+    fcfg = FeatureConfig()
+    pc = feature_row_layout(fcfg).patch_bytes
+    rgb0, depth0, _ = frames[0]
+    padded, dgrid = patch_inputs(
+        torch.from_numpy(rgb0).to(dev),
+        torch.from_numpy(depth0.astype(np.int32)).to(dev), fcfg,
+        recipe.TRAIN_STRIDE)
+    got = patches_cuda.extract_patches(padded, dgrid, fcfg.patch_size,
+                                       fcfg.patch_size_reduce,
+                                       recipe.TRAIN_STRIDE)
+    want = extract_patches_plain(padded, dgrid, fcfg.patch_size,
+                                 fcfg.patch_size_reduce, recipe.TRAIN_STRIDE)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "kernel A differs from its plain version "
+          f"at VGA stride {recipe.TRAIN_STRIDE}")
+    print(f"phase 11: kernel A == plain on a recipe frame at VGA stride "
+          f"{recipe.TRAIN_STRIDE} ({tuple(dgrid.shape)} grid)")
 
     reset_counts()
     # (a) the recipe: extraction through kernel A, exact search, device growth
@@ -1487,12 +1517,15 @@ def training_phase(card: str, dev, reset_counts) -> dict:
     check(np.array_equal(y_cpu, y), "card and CPU extraction label differently")
     differs = (x.cpu() != x_cpu).numpy()
     cols = np.nonzero(differs.any(0))[0].tolist()
+    check(all(c >= pc for c in cols), "kernel A's patch bytes of the recipe's "
+          f"frames differ from the CPU's, in columns {cols}")
     worst = float((x.cpu() - x_cpu).abs().max())
     from_cpu = ForestTrainer(recipe.trainer_config(), dev).learn(
         x_cpu.to(dev), y_cpu, class_counts=counts, progress=False)
     print(f"phase 11(c): the 12 frames extracted on the CPU in "
-          f"{cpu_extract_s:.3f} s: {int(differs.sum())} values differ from the "
-          f"card's, in columns {cols}, by at most {worst:.6g}; the card trains "
+          f"{cpu_extract_s:.3f} s: the {pc} patch bytes equal the card's; "
+          f"{int(differs.sum())} values differ, in columns {cols}, by at most "
+          f"{worst:.6g}; the card trains "
           f"on them {shape(from_cpu)}")
 
     # (d) the held-out 13th frame through kernel B, against the plain descent

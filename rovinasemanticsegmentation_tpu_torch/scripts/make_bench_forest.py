@@ -5,7 +5,7 @@ real 366-feature extraction at stride 5, two heuristic label layers, and a
 Usage:
 
     python -m rovinasemanticsegmentation_tpu_torch.scripts.make_bench_forest \
-        --out <forest.dat> [--device cuda|cpu] [--frames 12]
+        --out <forest.dat> [--device cuda|cpu]
 
 The recipe is the reference package's ``scripts/make_bench_forest.py``
 (which wrote ``resources/bench_forest.dat``), copied here: ``FRAMES`` frames
@@ -128,13 +128,12 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", required=True, help="forest.dat to write")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--frames", type=int, default=FRAMES)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
     gen = frames()
     t0 = time.perf_counter()
-    x, y = extract([next(gen) for _ in range(args.frames)], dev)
+    x, y = extract([next(gen) for _ in range(FRAMES)], dev)
     t1 = time.perf_counter()
     print(f"extracted {len(x)} samples x {x.shape[1]} features in "
           f"{t1 - t0:.2f}s")

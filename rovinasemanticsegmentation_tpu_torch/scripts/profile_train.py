@@ -4,10 +4,10 @@ window over the fixture recipe.
 Usage (on a machine with an NVIDIA GPU, from the repository root):
 
     python rovinasemanticsegmentation_tpu_torch/scripts/profile_train.py \
-        [--root DIR] [--mode exact|binned] [--trees 1]
+        [--root DIR] [--mode exact|binned]
 
 Extracts the recipe's 12 VGA frames on the card (``make_bench_forest.py``:
-~1.45e5 samples x 366 features), trains ``--trees`` trees of depth <= 30
+~1.45e5 samples x 366 features), trains one tree of depth <= 30
 once to warm up and once more unprofiled (wall seconds), then once under
 ``torch.profiler``, and prints the card's name and power limit, then one
 JSON line: the unprofiled wall seconds, the device time (the sum of the
@@ -100,7 +100,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
         os.path.dirname(os.path.abspath(__file__)))),
         help="checkout whose package is profiled (default: this one)")
     ap.add_argument("--mode", choices=("exact", "binned"), default="exact")
-    ap.add_argument("--trees", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("the training profile measures the card: no CUDA device")
@@ -117,7 +116,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     gen = recipe.frames()
     x, y = recipe.extract([next(gen) for _ in range(recipe.FRAMES)], "cuda")
     cfg = recipe.trainer_config(
-        num_trees=args.trees, split_bins=256 if args.mode == "binned" else 0)
+        num_trees=1, split_bins=256 if args.mode == "binned" else 0)
 
     def train():
         return ForestTrainer(cfg, "cuda").learn(

@@ -34,7 +34,10 @@ scan keeps). Counts are integer ``bincount``s, never float atomics, so a
 run on the card is deterministic. The level loop is a Python loop with one
 host read per level (the number of splits), and the frontier has its true
 size: the threefry draws do not depend on it, so the port needs none of
-JAX's static buckets or overflow retries.
+JAX's static buckets or overflow retries. Trees grow one after another in
+the one loop of :meth:`ForestTrainer.learn`, for host and device growth
+alike: JAX's fused forest, every tree in one dispatch, is the TPU's idiom
+for the same trees.
 """
 
 from __future__ import annotations
@@ -674,15 +677,6 @@ def _leaf_histograms_all(
     return counts.to(torch.float32) * freqs
 
 
-def forest_refit_device(
-    x: torch.Tensor, labels: torch.Tensor, freqs: torch.Tensor,
-    trees: Sequence[TreeTables], num_classes: int,
-) -> List[torch.Tensor]:
-    """Every tree's full-dataset refit (:func:`_leaf_histograms_all`)."""
-    return [_leaf_histograms_all(x, labels, freqs, t, num_classes)
-            for t in trees]
-
-
 def _inverted_class_frequency(labels: np.ndarray, c: int) -> np.ndarray:
     """data.h:345-369: size / per-class count."""
     counts = np.bincount(labels, minlength=c).astype(np.float64)
@@ -710,71 +704,8 @@ def _smooth_histograms(
 
 
 # ======================================================================
-# The fused forest and the public trainer
+# The public trainer
 # ======================================================================
-
-
-def grow_forest_device(
-    x_full: torch.Tensor,  # [N, D]
-    labels_full: torch.Tensor,  # [N, L] int64
-    idx: Sequence[torch.Tensor],  # per tree: [Ns] bootstrap indices
-    seeds: Sequence[int],  # per tree: threefry seed
-    class_weights: Sequence[Optional[torch.Tensor]],  # per tree: [C] or None
-    cfg: TrainerConfig,
-    num_classes: int,
-    xb_full: Optional[torch.Tensor] = None,  # [N, D] bins (binned mode)
-    boundaries: Optional[torch.Tensor] = None,
-) -> List[TreeTables]:
-    """Every tree's growth in one call, tree after tree: the bootstrap
-    gathers stay on the device, and each tree is exactly what
-    :func:`grow_tree_device` grows from the same sample and seed."""
-    return [
-        grow_tree_device(
-            x_full[i], labels_full[i], s, cw, cfg, num_classes,
-            xb=None if xb_full is None else xb_full[i],
-            boundaries=boundaries,
-        )
-        for i, s, cw in zip(idx, seeds, class_weights)
-    ]
-
-
-def _grow_forest_fused(
-    x_full: torch.Tensor,  # [N, D]
-    labels: np.ndarray,  # [N, L] host
-    labels_dev: torch.Tensor,  # [N, L] int64
-    freqs_dev: torch.Tensor,  # [L, c_max]
-    cfg: TrainerConfig,
-    num_classes: int,
-    tree_ids: Sequence[int],  # global tree indices (seed streams)
-    n_bootstrap: int,
-) -> List[Tuple[TreeTables, torch.Tensor]]:
-    """All trees, then all refits; -> per tree (tables, raw hist [nn, L, C]).
-
-    Host side: each tree's bootstrap indices and seed from
-    ``default_rng((seed, t))`` in JAX's order (indices, then seed), uploaded
-    once per tree.
-    """
-    n = x_full.shape[0]
-    ns = n_bootstrap if cfg.use_bootstrap else n
-    dev = x_full.device
-    idx, seeds, weights = [], [], []
-    for t in tree_ids:
-        rng = np.random.default_rng((cfg.seed, t))
-        idx_np = _bootstrap(rng, cfg, n, ns)
-        weights.append(_weights_or_none(
-            _tree_class_weights(cfg, labels[idx_np], ns, num_classes), dev))
-        seeds.append(_tree_seed(rng))
-        idx.append(torch.from_numpy(idx_np.astype(np.int64)).to(dev))
-    xb_full = bnd = None
-    if cfg.split_bins > 0:
-        xb_full, bnd = build_feature_bins(x_full, num_bins=cfg.split_bins)
-    trees = grow_forest_device(
-        x_full, labels_dev, idx, seeds, weights, cfg, num_classes,
-        xb_full=xb_full, boundaries=bnd,
-    )
-    raws = forest_refit_device(x_full, labels_dev, freqs_dev, trees,
-                               num_classes)
-    return list(zip(trees, raws))
 
 
 def _as_labels(labels) -> np.ndarray:
@@ -800,7 +731,6 @@ class ForestTrainer:
         multi_label: Optional[bool] = None,
         progress: bool = True,
         checkpoint_path: Optional[str] = None,
-        _tree_offset: int = 0,
     ) -> Forest:
         """Train the forest; with ``checkpoint_path``, save after each tree
         and resume from a partial checkpoint."""
@@ -843,34 +773,6 @@ class ForestTrainer:
             )
         freqs_dev = torch.from_numpy(freqs_np).to(self.device)
 
-        def finish(tables: TreeTables, raw: torch.Tensor) -> TreeArrays:
-            sf, th, lc, _ = tables.numpy()
-            return TreeArrays(
-                split_feature=sf, threshold=th, left_child=lc,
-                leaf_hist=_smooth_histograms(
-                    raw.cpu().numpy(), lc, class_counts, cfg.smoothing),
-            )
-
-        # The fused forest: every tree's growth, then every refit. Per-tree
-        # checkpoints need the tree loop below.
-        if cfg.device_growth and checkpoint_path is None and start_tree < cfg.num_trees:
-            t0 = time.perf_counter()
-            results = _grow_forest_fused(
-                x_full, labels, labels_dev, freqs_dev, cfg, c_max,
-                [t + _tree_offset for t in range(start_tree, cfg.num_trees)],
-                n_bootstrap,
-            )
-            for i, (tables, raw) in enumerate(results):
-                trees.append(finish(tables, raw))
-                if progress:
-                    log.info(
-                        "Finished tree %d/%d: %d nodes, depth %d "
-                        "(fused forest, %.1fs total)",
-                        start_tree + i + 1, cfg.num_trees, tables.num_nodes,
-                        int(tables.depth.max()), time.perf_counter() - t0,
-                    )
-            return build_forest(trees, class_counts, multi_label=multi_label)
-
         bins_full = bnd = None
         if cfg.split_bins > 0 and cfg.device_growth:
             bins_full, bnd = build_feature_bins(x_full, num_bins=cfg.split_bins)
@@ -878,7 +780,7 @@ class ForestTrainer:
         for t in range(start_tree, cfg.num_trees):
             start = time.perf_counter()
             # Deterministic per-tree stream: resume-safe and shardable.
-            rng = np.random.default_rng((cfg.seed, t + _tree_offset))
+            rng = np.random.default_rng((cfg.seed, t))
             idx = _bootstrap(rng, cfg, n, n_bootstrap)
             idx_dev = torch.from_numpy(idx.astype(np.int64)).to(self.device)
             yb = labels[idx]
@@ -896,7 +798,12 @@ class ForestTrainer:
                                     cfg, rng, c_max)
             raw = _leaf_histograms_all(x_full, labels_dev, freqs_dev, tables,
                                        c_max)
-            trees.append(finish(tables, raw))
+            sf, th, lc, _ = tables.numpy()
+            trees.append(TreeArrays(
+                split_feature=sf, threshold=th, left_child=lc,
+                leaf_hist=_smooth_histograms(
+                    raw.cpu().numpy(), lc, class_counts, cfg.smoothing),
+            ))
             if progress:
                 log.info(
                     "Finished tree %d/%d: %d nodes, depth %d, %.1fs",

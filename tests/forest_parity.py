@@ -12,7 +12,7 @@ Run as a script, it trains the fixture recipe at full size (12 VGA frames,
 ~1.4e5 samples x 366 features, 4 trees of depth <= 30) with both trainers on
 the CPU and prints the differing nodes per tree:
 
-    JAX_PLATFORMS=cpu python tests/forest_parity.py [--frames 12] [--mode exact]
+    JAX_PLATFORMS=cpu python tests/forest_parity.py [--mode exact|binned|host]
 """
 
 from __future__ import annotations
@@ -65,12 +65,11 @@ def main(argv=None) -> None:
     from rovinasemanticsegmentation_tpu_torch.train import forest_trainer as T
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=mb.FRAMES)
     ap.add_argument("--mode", choices=("exact", "binned", "host"),
                     default="exact")
     args = ap.parse_args(argv)
     gen = mb.frames()
-    x_dev, y = mb.extract([next(gen) for _ in range(args.frames)], "cpu")
+    x_dev, y = mb.extract([next(gen) for _ in range(mb.FRAMES)], "cpu")
     x = x_dev.numpy()
     kw = dict(device_growth=args.mode != "host",
               split_bins=256 if args.mode == "binned" else 0)

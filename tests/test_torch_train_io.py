@@ -1,6 +1,6 @@
 """PyTorch port: the trainer's own contracts and its files.
 
-The fused forest equals per-tree growth; a resumed run equals an
+The trainer's tree loop equals per-tree growth; a resumed run equals an
 uninterrupted one (and the reference package resumes the port's
 checkpoint); the trainer takes device tensors; forest files and npz
 checkpoints of either package load in the other with equal arrays;
@@ -31,16 +31,45 @@ from test_torch_train_forest import (
 
 
 @pytest.mark.parametrize("mode", ["exact", "binned"])
-def test_fused_forest_equals_per_tree_growth(mode, tmp_path):
+def test_forest_equals_per_tree_growth(mode, tmp_path):
+    """``learn``'s tree loop, with and without checkpoints, equals each tree
+    grown alone by ``grow_tree_device`` from its bootstrap sample and seed
+    (``default_rng((seed, t))``: indices first, then the seed, as JAX draws
+    them) and refit on the full data."""
     x, y, counts = _data(5, True)
     cfg = T.TrainerConfig(num_trees=3, max_depth=6, min_split_examples=5,
                           seed=9, **MODES[mode])
-    fused = T.ForestTrainer(cfg, "cpu").learn(x, y, class_counts=counts,
-                                              progress=False)
-    per_tree = T.ForestTrainer(cfg, "cpu").learn(
+    forest = T.ForestTrainer(cfg, "cpu").learn(x, y, class_counts=counts,
+                                               progress=False)
+    checkpointed = T.ForestTrainer(cfg, "cpu").learn(
         x, y, class_counts=counts, progress=False,
         checkpoint_path=str(tmp_path / "c.npz"))
-    _assert_forests_equal(fused, per_tree)
+    _assert_forests_equal(forest, checkpointed)
+
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y.astype(np.int64))
+    xb = bnd = None
+    if cfg.split_bins:
+        xb, bnd = T.build_feature_bins(xt, num_bins=cfg.split_bins)
+    freqs = torch.zeros(2, max(counts))
+    for l, c in enumerate(counts):
+        freqs[l, :c] = torch.from_numpy(T._inverted_class_frequency(y[:, l], c))
+    for t in range(cfg.num_trees):
+        rng = np.random.default_rng((cfg.seed, t))
+        idx = torch.from_numpy(T._bootstrap(rng, cfg, len(x), len(x)))
+        cw = T._weights_or_none(
+            T._tree_class_weights(cfg, y[idx.numpy()], len(idx), max(counts)))
+        tables = T.grow_tree_device(
+            xt[idx], yt[idx], T._tree_seed(rng), cw, cfg, max(counts),
+            xb=None if xb is None else xb[idx], boundaries=bnd)
+        sf, th, lc, _ = tables.numpy()
+        raw = T._leaf_histograms_all(xt, yt, freqs, tables, max(counts))
+        view = forest.tree_view(t)
+        np.testing.assert_array_equal(view.split_feature, sf)
+        np.testing.assert_array_equal(view.threshold, th)
+        np.testing.assert_array_equal(view.left_child, lc)
+        np.testing.assert_array_equal(
+            view.leaf_hist,
+            T._smooth_histograms(raw.numpy(), lc, counts, cfg.smoothing))
 
 
 @pytest.mark.parametrize("device_growth", [False, True])
