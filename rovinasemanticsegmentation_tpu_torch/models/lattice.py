@@ -18,7 +18,11 @@ layout on the build's sorted splat stream: the splat is a float32 prefix sum
 with per-vertex range differences, so no float atomics decide its summation
 order and a GPU gives the same sums on every run. The points-major
 :func:`lattice_filter` of the JAX package (a scatter-add splat) is its
-``[N, C]`` face: the port keeps one filter.
+``[N, C]`` face: the port keeps one filter. CRF learning differentiates it
+through :class:`_LatticeFilter` on a :class:`LatticeGeometry`, in the values
+and in the barycentric weights, which :func:`differentiable_barycentric`
+computes from the features; its gradients are gathers and sorted prefix
+sums too.
 
 Semantics kept from the reference: elevation with
 ``scale[i] = inv_std_dev / sqrt((i+1)(i+2))``; nearest-remainder rounding and
@@ -50,6 +54,10 @@ class PermutohedralLattice:
     blur_n2: np.ndarray  # [d+1, M] int32
     num_vertices: int  # M
     dim: int  # d
+    # Simplex geometry for the differentiable weights
+    # (:func:`differentiable_barycentric`); None from the native build.
+    rem0: Optional[np.ndarray] = None  # [N, d+1] float32
+    rank: Optional[np.ndarray] = None  # [N, d+1] int32
     # Sorted splat stream (attach_sorted_stream): contributions sorted by
     # vertex id, and per-vertex [start, end) row ranges into that stream.
     sorted_points: Optional[np.ndarray] = None  # [Spad] int32
@@ -164,7 +172,8 @@ def build_lattice(
         blur_n2[j] = lookup(n2)
 
     return PermutohedralLattice(
-        offsets, barycentric.astype(np.float32), blur_n1, blur_n2, m, d
+        offsets, barycentric.astype(np.float32), blur_n1, blur_n2, m, d,
+        rem0=rem0.astype(np.float32), rank=rank.astype(np.int32),
     )
 
 
@@ -192,6 +201,7 @@ def pad_lattice(
     return PermutohedralLattice(
         lattice.offsets, lattice.barycentric, pad_tbl(lattice.blur_n1),
         pad_tbl(lattice.blur_n2), m_pad, lattice.dim,
+        rem0=lattice.rem0, rank=lattice.rank,
     )
 
 
@@ -252,14 +262,17 @@ def _fused_sub(a: torch.Tensor, b: torch.Tensor, c: float) -> torch.Tensor:
     return (a.double() - b.double() * c).float()
 
 
-def _embed_simplex(features: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _embed_simplex(features: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Embed, round, rank and weight each point (permutohedral.cpp:352-426).
 
     Returns ``(keys [N, d+1, d] int64 simplex-corner coordinates,
-    bary [N, d+1] float32)``, bit-equal to the JAX package's
-    ``_embed_simplex`` on the CPU: the suffix sums run right to left, and
-    ``suffix_j - j * c_{j-1}`` is fused, with the product ``f_0 * scale_0``
-    itself fused for j = 1 (XLA drops the multiply by one there).
+    bary [N, d+1] float32, rem0 [N, d+1] float32, rank [N, d+1] int64)``,
+    the wrapped remainder point and rank being the simplex geometry behind
+    the keys and weights. Keys and weights are bit-equal to the JAX
+    package's ``_embed_simplex`` on the CPU: the suffix sums run right to
+    left, and ``suffix_j - j * c_{j-1}`` is fused, with the product
+    ``f_0 * scale_0`` itself fused for j = 1 (XLA drops the multiply by one
+    there).
     """
     n, d = features.shape
     d1 = d + 1
@@ -313,7 +326,7 @@ def _embed_simplex(features: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     r_idx = torch.arange(d1, device=dev)[None, :, None]
     step = torch.where(rank[:, None, :d] <= d - r_idx, r_idx, r_idx - d1)
     keys = rem0[:, None, :d].to(torch.int64) + step
-    return keys, bary
+    return keys, bary, rem0, rank
 
 
 def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -365,10 +378,11 @@ def _dedup_sorted(packs, bary, n: int, d: int, m_bucket: int, spad: int):
     the point offsets.
 
     Returns ``(sorted_points, sorted_weights, seg_starts, seg_ends,
-    offsets_t, m, uq, ucoord)``; ``uq``/``ucoord`` are the per-vertex packed
-    words and coordinates for the blur-neighbour merge. The sort is stable,
-    as ``jax.lax.sort`` is by default, so within a vertex the splat stream
-    keeps point order and equals the JAX package's stream.
+    offsets_t, m, uq, ucoord, pos_sorted)``; ``uq``/``ucoord`` are the
+    per-vertex packed words and coordinates for the blur-neighbour merge,
+    ``pos_sorted`` the flat (point, corner) index of each stream row. The
+    sort is stable, as ``jax.lax.sort`` is by default, so within a vertex
+    the splat stream keeps point order and equals the JAX package's stream.
     """
     d1 = d + 1
     s = n * d1
@@ -416,7 +430,7 @@ def _dedup_sorted(packs, bary, n: int, d: int, m_bucket: int, spad: int):
         if 2 * i + 1 < d:
             ucoord.append((w & 0xFFFF) - (1 << 15))
     return (sorted_points, sorted_weights, seg_starts, seg_ends, offsets_t,
-            m, uq, ucoord)
+            m, uq, ucoord, pos_sorted)
 
 
 def _blur_neighbor_queries(ucoord, d: int) -> List[List[torch.Tensor]]:
@@ -488,17 +502,23 @@ def build_lattice_device(features: torch.Tensor, m_bucket: int = 1 << 14):
     means overflow: the shapes hold, the contents are wrong, and the caller
     must rebuild with a larger bucket.
     """
+    return _build_device(features, m_bucket)[:9]
+
+
+def _build_device(features: torch.Tensor, m_bucket: int):
+    """:func:`build_lattice_device`'s nine results, then the stream rows'
+    flat (point, corner) indices, ``rem0`` and ``rank``."""
     n, d = features.shape
     s = n * (d + 1)
     spad = -(-s // 128) * 128
-    keys, bary = _embed_simplex(features.float())
+    keys, bary, rem0, rank = _embed_simplex(features.float())
     kflat = keys.reshape(s, d)
     packs = _pack_keys16([kflat[:, i] for i in range(d)], d)
     (sorted_points, sorted_weights, seg_starts, seg_ends, offsets_t, m, uq,
-     ucoord) = _dedup_sorted(packs, bary, n, d, m_bucket, spad)
+     ucoord, pos_sorted) = _dedup_sorted(packs, bary, n, d, m_bucket, spad)
     blur_n1, blur_n2 = _blur_neighbors_sort(uq, ucoord, m, m_bucket, d)
     return (sorted_points, sorted_weights, seg_starts, seg_ends, offsets_t,
-            bary.T.contiguous(), blur_n1, blur_n2, m)
+            bary.T.contiguous(), blur_n1, blur_n2, m, pos_sorted, rem0, rank)
 
 
 # ----------------------------------------------------------------------
@@ -526,7 +546,10 @@ def segment_sum_sorted_t(
     x = F.pad(contrib.double(), (0, spad - s)).reshape(c, spad // 128, 128)
     within = torch.cumsum(x, dim=2)
     rowtot = within[:, :, -1]
-    carry = torch.cumsum(rowtot, dim=1) - rowtot
+    # A lone row (C = 1) would take CUB's single-pass scan on the card, whose
+    # float rounding depends on the blocks' timing; a zero second row keeps
+    # the scan per row, which repeats bit for bit.
+    carry = torch.cumsum(F.pad(rowtot, (0, 0, 0, 1)), dim=1)[:c] - rowtot
     prefix = (within + carry[:, :, None]).reshape(c, spad)[:, :s]
     prefix = torch.cat([prefix.new_zeros((c, 1)), prefix], dim=1)
     return (prefix[:, ends] - prefix[:, starts]).to(contrib.dtype)
@@ -551,20 +574,38 @@ def lattice_filter_t(
     blur runs d+1 passes (reversed with ``reverse``), missing neighbours
     reading the zero slot at index ``num_vertices``.
     """
-    c = values_t.shape[0]
-    d1 = offsets_t.shape[0]
-    m = num_vertices
-    alpha = 1.0 / (1.0 + 2.0 ** (-(d1 - 1)))
+    verts = _splat_t(values_t, sorted_points, sorted_weights, seg_starts, seg_ends)
+    verts = _blur_t(verts, blur_n1, blur_n2, num_vertices, reverse)
+    return _slice_t(verts, offsets_t, barycentric_t)
 
+
+def _alpha(d1: int) -> float:
+    """The slice scale ``1 / (1 + 2^-d)`` (permutohedral.cpp:509-521)."""
+    return 1.0 / (1.0 + 2.0 ** (-(d1 - 1)))
+
+
+def _splat_t(values_t, sorted_points, sorted_weights, seg_starts, seg_ends):
+    """[C, N] values -> [C, M+1] vertex sums, the zero slot last."""
     contrib = values_t[:, sorted_points] * sorted_weights
     verts = segment_sum_sorted_t(contrib, seg_starts, seg_ends)  # [C, M]
-    zero = values_t.new_zeros((c, 1))
-    verts = torch.cat([verts, zero], dim=1)
+    return torch.cat([verts, verts.new_zeros((verts.shape[0], 1))], dim=1)
+
+
+def _blur_t(verts, blur_n1, blur_n2, m: int, reverse: bool):
+    """The d+1 blur passes over [C, M+1] vertices (reversed with ``reverse``);
+    missing neighbours read the zero slot at index ``m``."""
+    d1 = blur_n1.shape[0]
+    zero = verts[:, m:]
     for j in (range(d1 - 1, -1, -1) if reverse else range(d1)):
         blurred = verts[:, :m] + 0.5 * (verts[:, blur_n1[j]] + verts[:, blur_n2[j]])
         verts = torch.cat([blurred, zero], dim=1)
+    return verts
+
+
+def _slice_t(verts, offsets_t, barycentric_t):
+    """[C, M+1] vertices -> [C, N]: weighted corners, times alpha."""
     gathered = verts[:, offsets_t]  # [C, d+1, N]
-    return (gathered * barycentric_t).sum(dim=1) * alpha
+    return (gathered * barycentric_t).sum(dim=1) * _alpha(offsets_t.shape[0])
 
 
 def lattice_filter(
@@ -597,3 +638,172 @@ def filter_ones_norm(lattice: PermutohedralLattice) -> np.ndarray:
     out = lattice_filter(ones, *lattice_tensors(lattice, torch.device("cpu")),
                          lattice.num_vertices)
     return out[:, 0].numpy()
+
+
+# ----------------------------------------------------------------------
+# Differentiable filter (CRF learning)
+# ----------------------------------------------------------------------
+
+
+@dataclass
+class LatticeGeometry:
+    """A lattice on a device for :func:`lattice_filter_diff`: its vertex
+    topology and sorted splat stream, which do not depend on the weights,
+    the build's own weights, and the simplex geometry (``rem0``, ``rank``)
+    from which :func:`differentiable_barycentric` recomputes them."""
+
+    sorted_pos: torch.Tensor  # [S] int64, point * (d+1) + corner per stream row
+    seg_starts: torch.Tensor  # [M] int64
+    seg_ends: torch.Tensor  # [M] int64
+    offsets_t: torch.Tensor  # [d+1, N] int64
+    blur_n1: torch.Tensor  # [d+1, M] int64, M = missing
+    blur_n2: torch.Tensor  # [d+1, M] int64
+    barycentric_t: torch.Tensor  # [d+1, N] float32
+    num_vertices: int  # M, real or padded
+    rem0: Optional[torch.Tensor] = None  # [N, d+1] float32
+    rank: Optional[torch.Tensor] = None  # [N, d+1] int64
+
+
+def lattice_geometry(
+    lattice: PermutohedralLattice, device: torch.device
+) -> LatticeGeometry:
+    """A host lattice's geometry on ``device``; the stream is the stable sort
+    of its offsets, as :func:`attach_sorted_stream` makes it."""
+    flat = lattice.offsets.reshape(-1)
+    perm = np.argsort(flat, kind="stable")
+    vertices = np.arange(lattice.num_vertices)
+
+    def dev(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def idx(a):
+        return dev(a.astype(np.int64))
+
+    return LatticeGeometry(
+        idx(perm), idx(np.searchsorted(flat[perm], vertices, "left")),
+        idx(np.searchsorted(flat[perm], vertices, "right")),
+        idx(lattice.offsets.T), idx(lattice.blur_n1), idx(lattice.blur_n2),
+        dev(lattice.barycentric.T.astype(np.float32)), lattice.num_vertices,
+        rem0=dev(lattice.rem0),
+        rank=None if lattice.rank is None else idx(lattice.rank),
+    )
+
+
+def lattice_geometry_device(
+    features: torch.Tensor, m_bucket: int = 1 << 14
+) -> LatticeGeometry:
+    """:func:`build_lattice_device` on the features' device as a geometry,
+    with ``rem0`` and ``rank``. The vertex count is the one host read: a
+    bucket it overflows is made 4x larger and the build repeated."""
+    while True:
+        (_, _, starts, ends, offsets_t, bary_t, n1, n2, m, pos, rem0,
+         rank) = _build_device(features, m_bucket)
+        if int(m) <= m_bucket:
+            return LatticeGeometry(pos, starts, ends, offsets_t, n1, n2, bary_t,
+                                   m_bucket, rem0=rem0, rank=rank)
+        m_bucket *= 4
+
+
+def differentiable_barycentric(
+    features: torch.Tensor,  # [N, d]
+    rem0: torch.Tensor,  # [N, d+1] the build's remainder points
+    rank: torch.Tensor,  # [N, d+1]
+) -> torch.Tensor:  # [N, d+1]
+    """Barycentric weights as a differentiable function of the features,
+    with the discrete structure (``rem0``, ``rank``) held fixed, as the
+    reference's analytic feature gradient does (permutohedral.cpp:612-695).
+
+    The elevation is linear in the features; the weight assembly
+    (permutohedral.cpp:417-426) puts ``+v[i]`` in slot ``d - rank[i]`` and
+    ``-v[i]`` in the next one, written as masked sums over the slots (no
+    scatter, whose backward on the card would be an atomic gather-add)."""
+    n, d = features.shape
+    c = features * torch.from_numpy(_embedding_scale(d).astype(np.float32)).to(
+        features.device)
+    suffix = [torch.zeros_like(c[:, 0])]  # suffix_d = 0
+    for j in range(d - 1, -1, -1):
+        suffix.append(suffix[-1] + c[:, j])
+    suffix.reverse()
+    elevated = torch.stack(
+        [suffix[0]] + [suffix[j] - j * c[:, j - 1] for j in range(1, d + 1)], dim=1)
+    v = (elevated - rem0) * (1.0 / (d + 1))
+    slots = d - rank
+    cols = [
+        torch.where(slots == k, v, 0.0).sum(dim=1)
+        - torch.where(slots == k - 1, v, 0.0).sum(dim=1)
+        for k in range(d + 2)
+    ]
+    cols[0] = cols[0] + (1.0 + cols[d + 1])
+    return torch.stack(cols[: d + 1], dim=1)
+
+
+class _LatticeFilter(torch.autograd.Function):
+    """Splat -> blur -> slice on the sorted stream, differentiable in the
+    values and the barycentric weights.
+
+    Splat and slice are each other's transposes with the same weights, and
+    each blur pass is symmetric (``blur_n1`` and ``blur_n2`` are inverse
+    maps), so the values' gradient is the same filter with the passes
+    reversed (the reference's hand-derived gradient, permutohedral.cpp:
+    612-695). The weights' gradient at (corner k, point i) gathers from two
+    vertex fields at ``offsets[k, i]``: the blurred vertices against the
+    incoming gradient (slice), and the reversed-blurred splat of the incoming
+    gradient against the values (splat). Only gathers and sorted prefix
+    sums: no float atomics, so the gradients repeat bit for bit on the card.
+    """
+
+    @staticmethod
+    def forward(ctx, values_t, barycentric_t, geom):
+        d1 = geom.offsets_t.shape[0]
+        points = geom.sorted_pos // d1
+        weights = barycentric_t.T.reshape(-1)[geom.sorted_pos]
+        verts = _splat_t(values_t, points, weights, geom.seg_starts, geom.seg_ends)
+        verts = _blur_t(verts, geom.blur_n1, geom.blur_n2, geom.num_vertices, False)
+        ctx.geom, ctx.stream = geom, (points, weights)
+        ctx.save_for_backward(values_t, barycentric_t, verts)
+        return _slice_t(verts, geom.offsets_t, barycentric_t)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        values_t, barycentric_t, verts = ctx.saved_tensors
+        geom = ctx.geom
+        grad_out = grad_out.contiguous()
+        back = _splat_t(grad_out, *ctx.stream, geom.seg_starts, geom.seg_ends)
+        back = _blur_t(back, geom.blur_n1, geom.blur_n2, geom.num_vertices, True)
+        grad_values = grad_bary = None
+        if ctx.needs_input_grad[0]:
+            grad_values = _slice_t(back, geom.offsets_t, barycentric_t)
+        if ctx.needs_input_grad[1]:
+            off = geom.offsets_t
+            grad_bary = _alpha(off.shape[0]) * (
+                (grad_out[:, None, :] * verts[:, off]).sum(dim=0)
+                + (values_t[:, None, :] * back[:, off]).sum(dim=0)
+            )
+        return grad_values, grad_bary, None
+
+
+def lattice_filter_diff(
+    values: torch.Tensor,  # [N, C]
+    barycentric: Optional[torch.Tensor],  # [N, d+1], None: the build's own
+    geom: LatticeGeometry,
+) -> torch.Tensor:  # [N, C]
+    """Points-major filter on ``geom``, differentiable in ``values`` and
+    ``barycentric``; equal to :func:`lattice_filter` on the same lattice."""
+    bary_t = geom.barycentric_t if barycentric is None else barycentric.T
+    return _LatticeFilter.apply(values.T, bary_t, geom).T
+
+
+def lattice_filter_differentiable(
+    features: torch.Tensor,  # [N, d]
+    values: torch.Tensor,  # [N, C]
+    lattice: PermutohedralLattice,
+) -> torch.Tensor:  # [N, C]
+    """Gaussian filter differentiable in the feature positions, on the
+    vertex topology of ``lattice`` (a host build). Autograd through it is
+    the reference's ``Permutohedral::gradient`` (d/df of a^T K b). A native
+    build, which keeps no simplex geometry, is rebuilt with the NumPy path."""
+    if lattice.rem0 is None:
+        lattice = build_lattice(features.detach().cpu().numpy(), use_native=False)
+    geom = lattice_geometry(lattice, features.device)
+    bary = differentiable_barycentric(features, geom.rem0, geom.rank)
+    return lattice_filter_diff(values, bary, geom)

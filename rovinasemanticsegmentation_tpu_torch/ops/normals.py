@@ -1,7 +1,8 @@
-"""Integral-image surface normals (PCL AVERAGE_3D_GRADIENT), stride grid only.
+"""Integral-image surface normals (PCL AVERAGE_3D_GRADIENT).
 
 Counterpart of ``rovinasemanticsegmentation_tpu/ops/normals.py``:
-``normal_angles_grid`` with the ``iter`` chamfer. The reference runs
+:func:`normal_angles` at full resolution, :func:`normal_angles_grid` at the
+stride-grid samples, and :func:`chamfer_distance_map`. The reference runs
 ``pcl::IntegralImageNormalEstimation`` (AVERAGE_3D_GRADIENT,
 ``maxDepthChangeFactor = 0.02``, ``normalSmoothingSize = 10``,
 ``feature_extractor.h:254-262``) and keeps only ``acos(|n_z|)``, NaN -> -2
@@ -10,23 +11,32 @@ Counterpart of ``rovinasemanticsegmentation_tpu/ops/normals.py``:
 1. central-difference 3D gradients ``p(x+1) - p(x-1)`` and ``p(y+1) - p(y-1)``;
 2. a depth-change map: right/lower neighbour pairs with
    ``|dz| > 0.02 * (|z| + 1) * 2`` or a non-finite depth mark both pixels;
-3. a chamfer distance (axial 1.0, diagonal 1.4) to the nearest change,
-   saturated at the smoothing size;
-4. ``smoothing = min(distance, 10)``; the averaging window is
+3. a chamfer distance (axial 1.0, diagonal 1.4) to the nearest change:
+   saturated at the smoothing size for integral sizes, the exact two-pass
+   scan otherwise;
+4. ``smoothing = min(distance, size)``; the averaging window is
    ``rect = int(smoothing)`` wide, ``[pos - rect/2, pos - rect/2 + rect)``;
    pixels with ``smoothing <= 2``, non-finite depth, or inside the
-   ``int(10)``-pixel border frame are invalid;
-5. box sums of both gradients (and of their validity) from integral images,
-   read at the grid pixels only;
+   ``int(size)``-pixel border frame are invalid;
+5. box sums of both gradients (and of their validity) from integral images;
 6. ``normal = cross(sum_gy, sum_gx)``.
 
-The integral images are float32 prefix sums; their summation order differs
-from XLA's, so angles agree with the reference package to about 1e-4 rad.
+The gradients, integral images, box sums, cross product and ``acos`` run in
+float64, as PCL's own integral images do
+(``IntegralImageTypeTraits<float>::IntegralType`` is ``double``); only the
+angle is rounded to float32. A float32 running total over a VGA frame carries
+a relative error of ~3e-4 into a 10x10 box sum, and ``acos`` near 1 turns
+that into ~0.02 rad: the JAX package's float32 function is up to 0.016 rad
+from its own float64 run on the recipe's VGA frames, on 1.0-1.7% of the
+valid grid points beyond 2e-3 rad. In float64 the angles are within one
+float32 rounding of that run, and a parallel scan on the card rounds the same
+way as a sequential one on the CPU.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -39,6 +49,45 @@ def _shift_nan(a: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     xs = torch.arange(w, device=a.device)[None, :]
     bad = (ys - dy < 0) | (ys - dy >= h) | (xs - dx < 0) | (xs - dx >= w)
     return torch.where(bad, torch.full_like(out, float("nan")), out)
+
+
+def _row_chain_min(cand: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """In-row relaxation by +1.0 steps, ``out[x] = min_{j<=x} cand[j] + (x - j)``
+    (right to left with ``reverse``): PCL's sequential
+    ``cur[x] = min(base[x], cur[x-1] + 1)`` as a cumulative minimum."""
+    if reverse:
+        return torch.flip(_row_chain_min(torch.flip(cand, (-1,)), False), (-1,))
+    x = torch.arange(cand.shape[-1], dtype=cand.dtype, device=cand.device)
+    return torch.cummin(cand - x, dim=-1).values + x
+
+
+def _chamfer_passes(d0: torch.Tensor, big: float) -> torch.Tensor:
+    """PCL's two restricted chamfer passes over an [R, W] seed, one row at a
+    time. Columns 0 and w-1 are never relaxed (PCL loops x in [1, w-2]); the
+    first row is only touched by the backward pass, the last only by the
+    forward pass."""
+    r, w = d0.shape
+    cols = torch.arange(w, device=d0.device)
+    inner = (cols >= 1) & (cols <= w - 2)
+    edge = torch.full((1,), big, dtype=d0.dtype, device=d0.device)
+
+    def relax(prev: torch.Tensor, cur0: torch.Tensor, reverse: bool) -> torch.Tensor:
+        left = torch.cat([edge, prev[:-1]])  # prev[x - 1]
+        right = torch.cat([prev[1:], edge])  # prev[x + 1]
+        vert = torch.minimum(prev + 1.0, torch.minimum(left + 1.4, right + 1.4))
+        base = torch.minimum(cur0, vert)
+        feed = cols == (w - 1 if reverse else 0)
+        cand = torch.where(inner, base, torch.where(feed, cur0, big))
+        chained = _row_chain_min(cand, reverse)
+        return torch.where(inner, torch.minimum(base, chained), cur0)
+
+    rows = [d0[0]]
+    for i in range(1, r):
+        rows.append(relax(rows[-1], d0[i], False))
+    out = [rows[-1]]
+    for i in range(r - 2, -1, -1):
+        out.append(relax(out[-1], rows[i], True))
+    return torch.stack(out[::-1])
 
 
 def _chamfer_iter(change: torch.Tensor, saturation: float) -> torch.Tensor:
@@ -87,20 +136,60 @@ def _chamfer_iter(change: torch.Tensor, saturation: float) -> torch.Tensor:
     return d
 
 
+def chamfer_distance_map(
+    change: torch.Tensor,  # [H, W] bool
+    saturation: Optional[float] = None,
+    variant: str = "iter",
+) -> torch.Tensor:  # [H, W] float32
+    """PCL's two-pass chamfer (1.0/1.4) distance to the change pixels.
+
+    ``saturation=None`` runs the exact sequential passes. With
+    ``saturation=s`` only values below ``s`` outside an ``int(s)`` border
+    frame are exact (the consumer clamps at ``s``), which the ``"iter"``
+    variant computes in ``ceil(s)`` parallel rounds. The JAX package's
+    ``"banded"`` variant is not part of the port.
+    """
+    if saturation is None:
+        h, w = change.shape
+        big = float(h + w)
+        d0 = torch.where(
+            change,
+            torch.zeros((), dtype=torch.float32, device=change.device),
+            torch.full((), big, dtype=torch.float32, device=change.device),
+        )
+        return _chamfer_passes(d0, big)
+    if variant != "iter":
+        raise ValueError(f"chamfer variant {variant!r}: the port has 'iter' only")
+    return _chamfer_iter(change, saturation)
+
+
+def normal_angles(
+    points: torch.Tensor,  # [H, W, 3] float32, NaN where invalid
+    max_depth_change_factor: float = 0.02,
+    normal_smoothing_size: float = 10.0,
+) -> torch.Tensor:  # [H, W] float32 angles, -2 where invalid
+    """Angles at every pixel (see :func:`normal_angles_grid`)."""
+    return _normal_angles(points, None, max_depth_change_factor,
+                          normal_smoothing_size)
+
+
 def normal_angles_grid(
     points: torch.Tensor,  # [H, W, 3] float32, NaN where invalid
     stride: int,
     max_depth_change_factor: float = 0.02,
     normal_smoothing_size: float = 10.0,
 ) -> torch.Tensor:  # [ceil(H/s), ceil(W/s)] float32 angles, -2 where invalid
-    if float(normal_smoothing_size) != int(normal_smoothing_size):
-        raise NotImplementedError(
-            "only integral normal_smoothing_size is ported (the reference's "
-            "non-integral sizes take an exact full-height chamfer scan)"
-        )
+    """Angles at the stride-grid samples only: the integral images and the
+    distance transform run at full resolution (their windows span full-res
+    data), the box sums and everything per point at the grid pixels."""
+    return _normal_angles(points, int(stride), max_depth_change_factor,
+                          normal_smoothing_size)
+
+
+def _normal_angles(points, stride: Optional[int], max_depth_change_factor,
+                   normal_smoothing_size) -> torch.Tensor:
     dev = points.device
     h, w = points.shape[0], points.shape[1]
-    s = int(stride)
     z = points[..., 2]
     invalid = torch.isnan(z)
     ys_full = torch.arange(h, device=dev)[:, None]
@@ -122,55 +211,76 @@ def normal_angles_grid(
         | torch.roll(change_x, 1, dims=1)
         | torch.roll(change_y, 1, dims=0)
     )
-    distance = _chamfer_iter(change, normal_smoothing_size)
+    # Integral sizes take the saturated chamfer (its border agrees with the
+    # consumer's int(size) frame); other sizes the exact full-height scan.
+    integral_size = float(normal_smoothing_size) == int(normal_smoothing_size)
+    distance = chamfer_distance_map(
+        change, saturation=normal_smoothing_size if integral_size else None)
 
-    border = int(normal_smoothing_size)
-    rect_max = int(normal_smoothing_size)  # rects take values 2..rect_max
-    smoothing = torch.clamp(distance[::s, ::s], max=normal_smoothing_size)
-    invalid_g = invalid[::s, ::s]
-    rect = smoothing.to(torch.int32)  # int() truncation
-    gh, gw = rect.shape
-
-    # Channel-leading [8, H, W]: grad_x (3), grad_y (3), valid_x, valid_y.
-    pts_t = points.permute(2, 0, 1)
+    # Channel-leading [8, H, W] float64: grad_x (3), grad_y (3), valid_x,
+    # valid_y, and its zero-padded integral image [8, H+1, W+1].
+    pts_t = points.permute(2, 0, 1).double()
     gx_t = _shift_nan(pts_t, 0, -1) - _shift_nan(pts_t, 0, 1)
     gy_t = _shift_nan(pts_t, -1, 0) - _shift_nan(pts_t, 1, 0)
     stack = torch.cat(
         [
             torch.nan_to_num(gx_t),
             torch.nan_to_num(gy_t),
-            (~torch.isnan(gx_t[0]))[None].to(torch.float32),
-            (~torch.isnan(gy_t[0]))[None].to(torch.float32),
+            (~torch.isnan(gx_t[0]))[None].double(),
+            (~torch.isnan(gy_t[0]))[None].double(),
         ],
         dim=0,
     )
     integ = torch.cumsum(torch.cumsum(stack, dim=1), dim=2)
-    integ = torch.nn.functional.pad(integ, (1, 0, 1, 0))  # [8, H+1, W+1]
-    gys = torch.arange(gh, device=dev) * s
-    gxs = torch.arange(gw, device=dev) * s
+    integ = torch.nn.functional.pad(integ, (1, 0, 1, 0))
+    border = int(normal_smoothing_size)
 
-    def corner(dy: int, dx: int) -> torch.Tensor:  # [8, gh, gw]
-        yi = torch.clamp(gys + dy, 0, h)
-        xi = torch.clamp(gxs + dx, 0, w)
-        return integ[:, yi][:, :, xi]
+    if stride is not None:
+        s = stride
+        smoothing = torch.clamp(distance[::s, ::s], max=normal_smoothing_size)
+        invalid = invalid[::s, ::s]
+        rect = smoothing.to(torch.int32)  # int() truncation
+        gh, gw = rect.shape
+        gys = torch.arange(gh, device=dev) * s
+        gxs = torch.arange(gw, device=dev) * s
 
-    acc = torch.zeros((8, gh, gw), dtype=torch.float32, device=dev)
-    for r in range(2, rect_max + 1):
-        d0 = -(r // 2)
-        d1 = d0 + r  # exclusive end -> integral corner offset
-        box = corner(d1, d1) - corner(d0, d1) - corner(d1, d0) + corner(d0, d0)
-        acc = torch.where((rect == r)[None], box, acc)
+        def corner(dy: int, dx: int) -> torch.Tensor:  # [8, gh, gw]
+            yi = torch.clamp(gys + dy, 0, h)
+            xi = torch.clamp(gxs + dx, 0, w)
+            return integ[:, yi][:, :, xi]
+
+        # rect takes the values 2..int(size): one box per value, selected.
+        acc = integ.new_zeros((8, gh, gw))
+        for r in range(2, border + 1):
+            d0 = -(r // 2)
+            d1 = d0 + r  # exclusive end -> integral corner offset
+            box = corner(d1, d1) - corner(d0, d1) - corner(d1, d0) + corner(d0, d0)
+            acc = torch.where((rect == r)[None], box, acc)
+        ys_g, xs_g = gys[:, None], gxs[None, :]
+    else:
+        smoothing = torch.clamp(distance, max=normal_smoothing_size)
+        rect = smoothing.to(torch.int64)
+        r2 = rect // 2
+        y0 = torch.clamp(ys_full - r2, 0, h - 1)
+        y1 = torch.clamp(ys_full - r2 + rect - 1, 0, h - 1) + 1
+        x0 = torch.clamp(xs_full - r2, 0, w - 1)
+        x1 = torch.clamp(xs_full - r2 + rect - 1, 0, w - 1) + 1
+        flat = integ.reshape(8, -1)
+
+        def at(yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:  # [8, H, W]
+            return flat[:, yi * (w + 1) + xi]
+
+        acc = at(y1, x1) - at(y0, x1) - at(y1, x0) + at(y0, x0)
+        ys_g, xs_g = ys_full, xs_full
+
     sum_gx = acc[0:3].permute(1, 2, 0)
     sum_gy = acc[3:6].permute(1, 2, 0)
     cnt_x, cnt_y = acc[6], acc[7]
-    ys_g = gys[:, None]
-    xs_g = gxs[None, :]
-
     normal = torch.linalg.cross(sum_gy, sum_gx, dim=-1)
     norm = torch.linalg.vector_norm(normal, dim=-1)
     ok = (
         (smoothing > 2.0)  # PCL's minimum-window gate
-        & ~invalid_g
+        & ~invalid
         & (cnt_x > 0)
         & (cnt_y > 0)
         & (norm > 0)
@@ -180,5 +290,5 @@ def normal_angles_grid(
         & (xs_g < w - border)
     )
     nz = torch.abs(normal[..., 2]) / torch.clamp(norm, min=1e-20)
-    angle = torch.arccos(torch.clamp(nz, 0.0, 1.0))
+    angle = torch.arccos(torch.clamp(nz, 0.0, 1.0)).float()
     return torch.where(ok, angle, torch.full_like(angle, -2.0))

@@ -2,7 +2,7 @@
 
 The port imports nothing of ``rovinasemanticsegmentation_tpu``, so it keeps
 copies of ``utils/{config,calibration,labels,imageio,metrics,cvio,
-data_io}.py``, ``features/dataset.py``, ``serve/camera.py`` and ``native/``. Each copy is
+data_io,mcmc}.py``, ``features/dataset.py``, ``serve/camera.py`` and ``native/``. Each copy is
 held here against its original on the same inputs; the native library of
 the port builds from the port's own C++ sources.
 """
@@ -24,6 +24,7 @@ from rovinasemanticsegmentation_tpu.utils import cvio as j_cvio
 from rovinasemanticsegmentation_tpu.utils import data_io as j_data_io
 from rovinasemanticsegmentation_tpu.utils import imageio as j_imageio
 from rovinasemanticsegmentation_tpu.utils import labels as j_labels
+from rovinasemanticsegmentation_tpu.utils import mcmc as j_mcmc
 from rovinasemanticsegmentation_tpu.utils import metrics as j_metrics
 from rovinasemanticsegmentation_tpu_torch import native as t_native
 from rovinasemanticsegmentation_tpu_torch.features import dataset as t_dataset
@@ -34,6 +35,7 @@ from rovinasemanticsegmentation_tpu_torch.utils import cvio as t_cvio
 from rovinasemanticsegmentation_tpu_torch.utils import data_io as t_data_io
 from rovinasemanticsegmentation_tpu_torch.utils import imageio as t_imageio
 from rovinasemanticsegmentation_tpu_torch.utils import labels as t_labels
+from rovinasemanticsegmentation_tpu_torch.utils import mcmc as t_mcmc
 from rovinasemanticsegmentation_tpu_torch.utils import metrics as t_metrics
 
 from test_cli import MATERIAL, OBJECT, build_dataset
@@ -267,6 +269,25 @@ def test_cvio_copy_reads_and_writes_the_same(tmp_path, dtype):
         np.testing.assert_array_equal(
             t_imageio.load_color(str(tmp_path / "t.png")),
             j_imageio.load_color(str(tmp_path / "j.png")))
+
+
+def test_mcmc_copy_anneals_the_same():
+    runs = []
+    for mod in (j_mcmc, t_mcmc):
+        steps = []
+        best = mod.simulated_annealing(
+            initial_state=np.array([4.0, -2.0]),
+            energy=lambda x: float(np.sum((x - 1.0) ** 2)),
+            propose=lambda x, rng: x + rng.normal(0, 0.3, 2),
+            num_steps=300,
+            cooling=mod.GeometricCooling(start=1.5, alpha=0.98),
+            seed=4,
+            callback=lambda k, s, e, t: steps.append((e, t)),
+        )
+        runs.append((best, steps))
+    (jb, js), (tb, ts) = runs
+    np.testing.assert_array_equal(tb[0], jb[0])
+    assert tb[1] == jb[1] and ts == js
 
 
 def test_data_io_copy_reads_and_writes_the_same():

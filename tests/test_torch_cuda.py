@@ -538,3 +538,122 @@ def test_boosted_votes_on_card_equal_cpu(dev):
     np.testing.assert_array_equal(
         votes.cpu().numpy(),
         on_cpu.class_log_posterior(torch.from_numpy(x)).numpy())
+
+
+def _lattice_gradients(device, feats, values, weights):
+    """d/d(features, values) of sum(weights * K(values)) on the features'
+    lattice (the device build on the card, the NumPy build on the CPU)."""
+    from rovinasemanticsegmentation_tpu_torch.models.crf_learning import (
+        geometry_for,
+    )
+    from rovinasemanticsegmentation_tpu_torch.models.lattice import (
+        differentiable_barycentric,
+        lattice_filter_diff,
+    )
+
+    geom = geometry_for(feats.to(device), torch.device(device), use_native=False)
+    f = feats.to(device).clone().requires_grad_(True)
+    v = values.to(device).clone().requires_grad_(True)
+    bary = differentiable_barycentric(f, geom.rem0, geom.rank)
+    out = lattice_filter_diff(v, bary, geom)
+    (weights.to(device) * out).sum().backward()
+    return f.grad, v.grad
+
+
+def test_lattice_filter_gradients_repeat_on_card(dev):
+    """The differentiable filter's gradients use sorted prefix sums and
+    gathers only: the same bits on every run, and the CPU's within float32
+    rounding of two summation orders."""
+    feats = _room_features(20000, 3)
+    rng = np.random.default_rng(4)
+    values = torch.from_numpy(rng.normal(size=(20000, 4)).astype(np.float32))
+    weights = torch.from_numpy(rng.normal(size=(20000, 4)).astype(np.float32))
+    runs = [_lattice_gradients(dev, feats, values, weights) for _ in range(3)]
+    for gf, gv in runs[1:]:
+        assert torch.equal(gf, runs[0][0]) and torch.equal(gv, runs[0][1])
+    want_f, want_v = _lattice_gradients("cpu", feats, values, weights)
+    for got, want in zip(runs[0], (want_f, want_v)):
+        err = (got.cpu() - want).abs().max() / want.abs().max()
+        assert err <= 1e-4
+
+
+def test_kernel_learner_gradient_repeats_on_card(dev):
+    from rovinasemanticsegmentation_tpu_torch.models.crf_learning import (
+        FullKernelCrfLearner,
+        intersection_over_union,
+    )
+
+    rng = np.random.default_rng(7)
+    n, c = 12000, 4
+    unary = rng.normal(size=(n, c)).astype(np.float32)
+    base = _room_features(n, 8).numpy() * 3.0
+    gt = rng.integers(-1, c, n).astype(np.int32)
+    mat = np.eye(6) * 0.5
+    mat[0, 3] = 0.05
+
+    def learner(device):
+        return FullKernelCrfLearner(unary, base, gt, 3, intersection_over_union,
+                                    device=device)
+
+    on_card = learner(dev)
+    runs = [on_card._neg_obj_and_grad(1.5, mat) for _ in range(2)]
+    assert runs[0][:2] == runs[1][:2] and np.array_equal(runs[0][2], runs[1][2])
+    v, gw, gm = learner("cpu")._neg_obj_and_grad(1.5, mat)
+    assert runs[0][0] == pytest.approx(v, rel=1e-4)
+    # The lattice follows the transformed features' last bit, which the two
+    # sides' float32 matmuls round differently (chip_smoke.py phase 13).
+    g_card = np.append(runs[0][2].ravel(), runs[0][1])
+    g_cpu = np.append(gm.ravel(), gw)
+    assert np.abs(g_card - g_cpu).max() <= 5e-3 * np.abs(g_cpu).max()
+
+
+def _vga_points():
+    from rovinasemanticsegmentation_tpu_torch.ops.geometry import backproject
+    from rovinasemanticsegmentation_tpu_torch.scripts import (
+        make_bench_forest as recipe,
+    )
+
+    _, depth, _ = next(recipe.frames())
+    return backproject(torch.from_numpy(depth.astype(np.int32)),
+                       recipe.calibration().intrinsic_inverse, np.eye(3),
+                       np.zeros(3), 0.5, 15.0)
+
+
+@pytest.mark.parametrize("stride,size", [(None, 10.0), (2, 10.0), (5, 10.0),
+                                         (2, 6.5)])
+def test_normals_on_card_match_cpu(dev, stride, size):
+    """Float64 integral images: masks equal, angles within 2 float32 ulps."""
+    from rovinasemanticsegmentation_tpu_torch.ops import normals
+
+    pts = _vga_points()
+
+    def angles(p):
+        if stride is None:
+            return normals.normal_angles(p, normal_smoothing_size=size)
+        return normals.normal_angles_grid(p, stride, normal_smoothing_size=size)
+
+    got, want = angles(pts.to(dev)).cpu(), angles(pts)
+    assert torch.equal(got == -2.0, want == -2.0)
+    valid = want != -2.0
+    assert valid.sum() > 1000
+    assert (got[valid] - want[valid]).abs().max() <= 2.4e-7
+
+
+@pytest.mark.parametrize("saturation", [None, 10.0])
+def test_chamfer_on_card_equals_cpu(dev, saturation):
+    from rovinasemanticsegmentation_tpu_torch.ops import normals
+
+    rng = np.random.default_rng(9)
+    change = torch.from_numpy(rng.random((480, 640)) < 0.003)
+    got = normals.chamfer_distance_map(change.to(dev), saturation)
+    assert torch.equal(got.cpu(), normals.chamfer_distance_map(change, saturation))
+
+
+@pytest.mark.parametrize("out", [(11, 11), (21, 27), (240, 320)])
+def test_resize_u8_on_card_equals_cpu(dev, out):
+    from rovinasemanticsegmentation_tpu_torch.ops.resize import resize_bilinear_u8
+
+    img = torch.from_numpy(
+        np.random.default_rng(10).integers(0, 256, (480, 640, 3), dtype=np.uint8))
+    got = resize_bilinear_u8(img.to(dev), *out)
+    assert torch.equal(got.cpu(), resize_bilinear_u8(img, *out))
