@@ -123,6 +123,27 @@ or ALU) over that pipe's rate.
    evaluation; and at scale 4 on the card and the CPU, histories within
    2e-3.
 
+14. the sharded paths of ``parallel/`` in ``torch.distributed`` worlds of
+   processes on the card (``parallel/launch.py``): (a) one rank over nccl:
+   the dry run's frame-step probe equal to the single process, the
+   point-sharded mean field on a 30000-point map within rtol 2e-4 / atol
+   2e-5; (b) 8 ranks sharing the card over gloo (a 2 x 4 data x model mesh):
+   whether gloo's ``all_gather`` takes a CUDA tensor, the frame step on 4
+   VGA keyframes with the fixture forest (each data rank 2 keyframes, each
+   model rank 1 tree; kernels A and B must launch in every rank) within rtol
+   1e-6 of the single process's ``run_batch_stacked`` and with labels equal
+   except near-ties, the wall ms of both (not a speed-up: 8 processes share
+   one card); the points-major, transposed, vertex-sharded and automatic
+   mean fields on the map within rtol 2e-4 / atol 2e-5 of
+   ``potts_mean_field_multi_t``, the variant chosen and both comm volumes;
+   ``LocalMapPipeline(mesh=...).run_device`` on the map's 4 keyframes
+   agreeing on >= 99.9% of the labels with the single card's host-lattice
+   ``run_device``; the dry run's part 5 (each data rank's streaming share)
+   equal to the worker path; (c) ``learn_forest_parallel`` on two slots of
+   the card at phase 11(c)'s size, equal to the sequential trainer. Its A and
+   B launches, summed over the ranks of the frame step, are the
+   ``launches_parallel`` entries.
+
 The last lines are the card's name and power limit, one JSON object of
 per-kernel results (``launches``: the serving run of phase 4 for A and B,
 the entry points of phase 6 for C'' and D''), and ``{"ok": true, "device":
@@ -1374,6 +1395,12 @@ def run(card: str) -> dict:
     crf_learning_phase(card, dev)
     print(f"phases 12-13: {time.perf_counter() - t0:.3f} s ({card})")
 
+    # ---- phase 14: the sharded paths in torch.distributed worlds
+    launches14 = parallel_phase(card, dev, frames, calib, forest_np, maps[0],
+                                projector)
+    for name, k in launches14.items():
+        results[name]["launches_parallel"] = k
+
     # No single PyTorch call computes any of these functions, so no library
     # call is timed beside them.
     return {
@@ -1688,6 +1715,194 @@ def public_functions_phase(card: str, dev) -> None:
     print(f"phase 12: StepTimer around a 2^24-element cumsum on the card "
           f"{1000 * timer.stats['cumsum'].mean:.3f} ms; device_trace wrote "
           f"{len(events)} events, {kernels} of them kernels ({card})")
+
+
+def parallel_phase(card: str, dev, frames, calib, forest_np, cloud,
+                   projector) -> dict:
+    """Phase 14: the sharded paths of ``parallel/`` in worlds of processes on
+    the card, held against the single process. -> launches of kernels A
+    (with its Lab pack) and B in the 8-rank frame step, summed over ranks."""
+    import torch
+
+    from rovinasemanticsegmentation_tpu_torch.features.extractor import (
+        FeatureConfig,
+    )
+    from rovinasemanticsegmentation_tpu_torch.models.lattice import (
+        build_lattice,
+    )
+    from rovinasemanticsegmentation_tpu_torch.parallel import dryrun
+    from rovinasemanticsegmentation_tpu_torch.parallel.launch import (
+        Call,
+        run_world,
+    )
+    from rovinasemanticsegmentation_tpu_torch.parallel.mesh import mesh_shape
+    from rovinasemanticsegmentation_tpu_torch.parallel.tree_parallel import (
+        learn_forest_parallel,
+    )
+    from rovinasemanticsegmentation_tpu_torch.pipelines.local_map import (
+        CrfParams,
+        LocalMapPipeline,
+        MapNodeFrames,
+        crf_feats,
+    )
+    from rovinasemanticsegmentation_tpu_torch.pipelines.single_frame import (
+        SingleFramePipeline,
+    )
+    from rovinasemanticsegmentation_tpu_torch.scripts import (
+        make_bench_forest as recipe,
+    )
+    from rovinasemanticsegmentation_tpu_torch.train.forest_trainer import (
+        ForestTrainer,
+    )
+
+    t_phase = time.perf_counter()
+    ranks, b = 8, 4
+    shape = mesh_shape(ranks)
+    cfg = FeatureConfig()
+    stacks = (
+        np.stack([f[0] for f in frames[:b]]),
+        np.stack([f[1] for f in frames[:b]]),
+        np.tile(calib.intrinsic_inverse[None], (b, 1, 1)).astype(np.float32),
+        np.tile(calib.rotation[None], (b, 1, 1)).astype(np.float32),
+        np.tile(calib.translation[None], (b, 1)).astype(np.float32),
+    )
+
+    # The single process: the frame step on the whole forest, and the map
+    # path with the host lattice on the 4 keyframes' posteriors.
+    fp = SingleFramePipeline(cfg, forest_np, STRIDE, dev, fill_value=0.0)
+    ref = fp.run_batch_stacked(*stacks)
+    single_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fp.run_batch_stacked(*stacks)
+        torch.cuda.synchronize()
+        single_ms.append(1000 * (time.perf_counter() - t0))
+    want_p = [[p.cpu().numpy() for p in r.posteriors] for r in ref]
+    want_l = [[l.cpu().numpy() for l in r.labels] for r in ref]
+    pts, cols = cloud
+    nodes = [MapNodeFrames(pose=pose_of(f), posteriors=[want_p[f]])
+             for f in range(b)]
+    crf = CrfParams(use_dense_crf=True)
+    single_map = LocalMapPipeline(projector, [8, 9], [7, 8], dev, crf=crf,
+                                  use_device_lattice=False)
+    want_map = [l.cpu().numpy() for l in single_map.run_device(pts, cols, nodes)]
+    energies = -torch.cat(single_map.fuse_unaries(pts, nodes), dim=1).cpu().numpy()
+    lattice = build_lattice(crf_feats(torch.from_numpy(pts), torch.from_numpy(cols),
+                                      crf.xyz_kernel, crf.rgb_kernel).numpy())
+    want_q, norm = dryrun.lattice_reference(lattice, energies, crf.kernel_weight,
+                                            (8, 9), crf.iterations, dev)
+    want_q1, _ = dryrun.lattice_reference(lattice, energies, crf.kernel_weight,
+                                          (17,), crf.iterations, dev)
+    field_args = ("model", energies, lattice, norm, crf.kernel_weight, (8, 9),
+                  crf.iterations)
+
+    # (a) a one-rank nccl world: the probe frame step and the mean field
+    t0 = time.perf_counter()
+    out = run_world(1, [
+        Call("parallel.mesh:shard_batch_pipeline"),
+        Call("parallel.dryrun:mean_field_variants", field_args,
+             {"variants": ("transposed",)}),
+    ], device="cuda", timeout=300)
+    dryrun.check_frames(*out[0][0], *dryrun.probe_reference(1, dev))
+    err_a = dryrun.check_fields(out[0][1], want_q, ("transposed",))
+    print(f"phase 14(a): 1 rank: probe frame step == single process, "
+          f"mean field on the {len(pts)}-point map within {err_a:.2e}; "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    # (b) 8 ranks sharing the card (gloo): the frame step at full width, the
+    # sharded mean fields, the map path, and the dry run's part 5.
+    case = dryrun.streaming_inputs(shape["data"])
+    t0 = time.perf_counter()
+    out = run_world(ranks, [
+        Call("parallel.dryrun:probe_cuda_all_gather"),
+        Call("parallel.dryrun:timed_frame_step",
+             (forest_np, cfg, STRIDE, stacks, 0.0)),
+        Call("parallel.dryrun:mean_field_variants", field_args),
+        Call("parallel.dryrun:map_labels",
+             (projector, pts, cols, [8, 9], [7, 8], crf), {"nodes": nodes}),
+        Call("parallel.dryrun:streaming_share", (case,)),
+    ], device="cuda", timeout=600)
+    world_s = time.perf_counter() - t0
+    print(f"phase 14(b): gloo all_gather of a CUDA tensor over the data axis: "
+          f"{out[0][0]}")
+    differ = 0
+    launches = {"pack_lab": 0, "patches": 0, "forest_descent": 0}
+    for rank, rank_out in enumerate(out):
+        step = rank_out[1]
+        for i, f in enumerate(step["frames"]):
+            differ += dryrun.check_frames(step["posteriors"][i], step["labels"][i],
+                                          want_p[f], want_l[f])
+        for name, k in step["launches"].items():
+            check(k > 0, f"rank {rank}: kernel {name} was not launched by the "
+                  "frame step")
+            launches[name] += k
+    rank_ms = [float(np.median(o[1]["ms"][1:])) for o in out]
+    print(f"phase 14(b): frame step, {b} VGA keyframes, {ranks} ranks "
+          f"({shape['data']} data x {shape['model']} model, "
+          f"{forest_np.num_trees // shape['model']} tree(s) each): posteriors "
+          f"within rtol 1e-6 of the single process on every rank, {differ} "
+          f"labels differ (near-ties); launches {launches}")
+    print(f"phase 14(b): frame step wall {max(rank_ms):.3f} ms on the slowest "
+          f"rank, {min(rank_ms):.3f} ms on the fastest (median of runs 2-3, the "
+          f"ranks' sub-forests built before them; 8 processes sharing one "
+          f"card), single process "
+          f"{sorted(single_ms)[1]:.3f} ms (median of 3): not a speed-up ({card})")
+    def med(key):
+        return [float(np.median(o[1][key][1:])) for o in out]
+
+    print(f"phase 14(b): the step's halves alone, slowest / fastest rank "
+          f"(median of runs 2-3): posterior partial {max(med('partial_ms')):.3f}"
+          f" / {min(med('partial_ms')):.3f} ms, gloo all_reduce of its "
+          f"{out[0][1]['partial_bytes']} bytes over the model axis "
+          f"{max(med('all_reduce_ms')):.3f} / {min(med('all_reduce_ms')):.3f} ms "
+          f"({card})")
+    fields = out[0][2]
+    err_b = dryrun.check_fields(fields, want_q, ("transposed", "vertex", "auto"))
+    err_b = max(err_b, dryrun.check_fields(fields, want_q1, ("points",)))
+    for rank_out in out[1:]:
+        for v in ("points", "transposed", "vertex", "auto"):
+            check(np.array_equal(rank_out[2][v], fields[v]),
+                  f"ranks disagree on the {v} mean field")
+    print(f"phase 14(b): sharded mean fields (points-major, transposed, "
+          f"vertex-sharded, auto) on the {len(pts)}-point map, 10 iterations, "
+          f"within {err_b:.2e} of potts_mean_field_multi_t; auto chose "
+          f"{fields['variant']} (halo {fields['halo_comms']} vs all_reduce "
+          f"{fields['replicated_comms']} values per filter and channel)")
+    agree = 1.0
+    for rank_out in out:
+        for li, (g, w) in enumerate(zip(rank_out[3]["labels"], want_map)):
+            agree = min(agree, float((g == w).mean()))
+            check(agree >= 0.999, f"phase 14(b): layer {li}: sharded map "
+                  f"labels agree on {agree:.4%} with the single card")
+    print(f"phase 14(b): LocalMapPipeline(mesh=...).run_device "
+          f"({out[0][3]['variant']}) agrees on {agree:.4%} of the labels (least "
+          "over ranks and layers) with the single card's host-lattice run_device")
+    dryrun.check_streaming([o[4] for o in out], case, dev)
+    print(f"phase 14(b): dry run part 5 (streaming shares) == worker path; "
+          f"world {world_s:.3f} s")
+
+    # (c) tree-parallel training on two slots of the card
+    gen = recipe.frames()
+    x2, y2 = recipe.extract([next(gen) for _ in range(2)], dev)
+    cfg2 = recipe.trainer_config(num_trees=2, max_depth=12)
+    counts = list(recipe.CLASS_COUNTS)
+    t0 = time.perf_counter()
+    seq = ForestTrainer(cfg2, dev).learn(x2, y2, class_counts=counts,
+                                         progress=False)
+    seq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    par = learn_forest_parallel(cfg2, x2, y2, class_counts=counts,
+                                devices=[dev, dev])
+    par_s = time.perf_counter() - t0
+    for f in ("split_feature", "threshold", "left_child", "leaf_hist"):
+        check(np.array_equal(getattr(par, f), getattr(seq, f)),
+              f"tree-parallel training differs from sequential in {f}")
+    print(f"phase 14(c): learn_forest_parallel on [{dev}, {dev}] == the "
+          f"sequential trainer ({len(x2)} samples, 2 trees, nodes "
+          f"{par.node_counts}): {par_s:.3f} s, sequential {seq_s:.3f} s ({card})")
+    print(f"phase 14: {time.perf_counter() - t_phase:.3f} s ({card})")
+    return launches
 
 
 def device_busy_ms(events) -> float:

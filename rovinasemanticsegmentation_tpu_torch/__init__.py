@@ -26,6 +26,9 @@ which has no Pallas kernel. Beside the online node (``cli/node.py``) the
 port has the offline entry points: the streaming step
 (``pipelines/streaming.py``), the evaluation CLIs (``cli/test.py``,
 ``cli/test_multi.py``) and the 2D CRF demo (``cli/dense_inference.py``).
+``parallel/`` runs the sharded paths (the frame step data- and
+tree-parallel, the sharded mean fields, tree-parallel training) in
+``torch.distributed`` worlds of one process per device slot.
 """
 
 __version__ = "0.1.0"

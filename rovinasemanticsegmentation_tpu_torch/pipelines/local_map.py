@@ -169,7 +169,8 @@ class _VertexCountProbe:
 
 
 class LocalMapPipeline:
-    """Fusion, dense-CRF smoothing and labelling of local maps on one device.
+    """Fusion, dense-CRF smoothing and labelling of local maps on one device
+    (with a ``mesh``, the mean field sharded over a world of ranks).
 
     Vertex bucket policy of the device lattice build: the bucket starts at
     2^14 vertex slots. The first map of each cloud size synchronises once
@@ -188,11 +189,23 @@ class LocalMapPipeline:
         device: torch.device | str,
         crf: CrfParams = CrfParams(),
         use_device_lattice: bool = True,
+        mesh=None,
+        mesh_axis: str = "model",
     ):
+        """With a ``mesh`` (``parallel/mesh.py``; the pipeline then runs in
+        every rank of its world, on ``mesh.device``) and the dense CRF on, the
+        mean field runs point-sharded over ``mesh_axis``
+        (:meth:`label_map_sharded`)."""
         self.projector = projector
         self.class_counts = [int(c) for c in class_counts]
         self.unknown_labels = [int(u) for u in unknown_labels]
         self.device = resolve_device(device)
+        if mesh is not None and resolve_device(mesh.device) != self.device:
+            raise ValueError(
+                f"pipeline on {self.device}, mesh rank on {mesh.device}")
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.last_crf_variant: Optional[str] = None
         self.crf = crf
         self.use_device_lattice = bool(use_device_lattice)
         self._intrinsics = torch.from_numpy(projector.intrinsics).to(self.device)
@@ -293,6 +306,50 @@ class LocalMapPipeline:
         )
         return labels, m
 
+    def label_map_sharded(
+        self, cloud_points, cloud_rgb, unaries: Sequence[torch.Tensor],
+    ) -> List[torch.Tensor]:
+        """Per-layer int32 labels with the mean field sharded over the mesh.
+
+        The lattice is built on the host (the plan needs it there), the
+        sharding planned over the axis, and the variant that moves fewer
+        values per filter runs: the replicated ``[C, M+1]`` all_reduce or the
+        vertex-sharded halo exchange (``parallel/sharded_lattice.py``). It
+        is recorded in ``last_crf_variant``. The energy is ``-unaries``
+        (segmenter.cpp:642), the floor 2/C with the layer's Unknown.
+        """
+        from ..parallel.sharded_lattice import (
+            auto_sharded_potts_mean_field,
+            plan_sharded_lattice,
+        )
+
+        feats = crf_feats(
+            torch.as_tensor(cloud_points, dtype=torch.float32),
+            torch.as_tensor(cloud_rgb, dtype=torch.float32),
+            self.crf.xyz_kernel, self.crf.rgb_kernel,
+        )  # [N, 6] (segmenter.cpp:629-637), on the host
+        lattice = build_lattice(feats.cpu().numpy())
+        plan = plan_sharded_lattice(lattice, self.mesh.shape[self.mesh_axis])
+        energies = -torch.cat(
+            [torch.as_tensor(u, dtype=torch.float32, device=self.device)
+             for u in unaries], dim=1)
+        q, variant = auto_sharded_potts_mean_field(
+            self.mesh, self.mesh_axis, energies, lattice,
+            float(self.crf.kernel_weight), tuple(self.class_counts),
+            int(self.crf.iterations), plan=plan,
+        )
+        self.last_crf_variant = variant
+        logging.info(
+            "sharded map CRF: variant=%s (halo %d vs all_reduce %d "
+            "values/filter)", variant, plan.comms_per_filter,
+            plan.replicated_comms_per_filter,
+        )
+        return [
+            _floor_labels(ql, c, unk)
+            for ql, c, unk in zip(torch.split(q.T, self.class_counts),
+                                  self.class_counts, self.unknown_labels)
+        ]
+
     def _drain_overflow_flags(self, blocking: bool = False) -> None:
         """Read the vertex counts of finished maps without blocking.
 
@@ -365,6 +422,9 @@ class LocalMapPipeline:
         if cloud_rgb is None:
             raise ValueError("dense CRF smoothing needs cloud RGB")
         rgb = torch.as_tensor(cloud_rgb, dtype=torch.float32, device=dev)
+        if self.mesh is not None:
+            return self.label_map_sharded(
+                points, rgb, self.fuse_unaries(points, nodes))
         labels, m = self.map_fused(points, rgb, nodes, self._m_bucket)
         if not self.use_device_lattice:
             return labels

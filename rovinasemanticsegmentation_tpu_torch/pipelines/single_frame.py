@@ -132,6 +132,16 @@ class SingleFramePipeline:
         rot_stack,  # [B, 3, 3]
         trans_stack,  # [B, 3]
     ) -> List[SingleFrameResult]:
+        post, masks = self.stacked_posteriors(
+            rgb_stack, depth_stack, kinv_stack, rot_stack, trans_stack)
+        return self.results(post, masks, tuple(depth_stack.shape[1:]))
+
+    def stacked_posteriors(
+        self, rgb_stack, depth_stack, kinv_stack, rot_stack, trans_stack,
+    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """Features and the descent of a batch: -> (log-posterior
+        ``[B*P, L, C_max]`` summed over this pipeline's trees, per-frame masks
+        ``[P]``)."""
         dev = self.device
         rgb_stack = to_device_image(rgb_stack, dev)
         depth_stack = to_device_depth(depth_stack, dev)
@@ -140,8 +150,8 @@ class SingleFramePipeline:
             for a in (kinv_stack, rot_stack, trans_stack)
         )
         b, h, w = depth_stack.shape
-        grid_shape = (-(-h // self.stride), -(-w // self.stride))
-        p = grid_shape[0] * grid_shape[1]
+        gh, gw = self.grid_shape(h, w)
+        p = gh * gw
         # One packed row buffer for the batch: each frame's features are
         # written into it in place, and the descent reads it.
         layout = feature_row_layout(self.feature_config)
@@ -155,10 +165,23 @@ class SingleFramePipeline:
             for i in range(b)
         ]
         _, post = forest_predict_rows(rows, layout, self.forest)
+        return post, masks
+
+    def grid_shape(self, h: int, w: int) -> Tuple[int, int]:
+        return -(-h // self.stride), -(-w // self.stride)
+
+    def results(
+        self, post: torch.Tensor, masks: Sequence[torch.Tensor],
+        frame_shape: Tuple[int, int],
+    ) -> List[SingleFrameResult]:
+        """Per-frame posterior maps and labels from :meth:`stacked_posteriors`."""
+        h, w = frame_shape
+        grid_shape = self.grid_shape(h, w)
+        p = grid_shape[0] * grid_shape[1]
         results = []
-        for i in range(b):
+        for i, mask in enumerate(masks):
             posteriors, labels = posterior_maps(
-                post[i * p : (i + 1) * p], masks[i], grid_shape,
+                post[i * p : (i + 1) * p], mask, grid_shape,
                 self.class_counts, self.fill_value, h, w,
             )
             results.append(SingleFrameResult(posteriors, labels))

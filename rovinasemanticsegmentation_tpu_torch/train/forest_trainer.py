@@ -35,7 +35,8 @@ run on the card is deterministic. The level loop is a Python loop with one
 host read per level (the number of splits), and the frontier has its true
 size: the threefry draws do not depend on it, so the port needs none of
 JAX's static buckets or overflow retries. Trees grow one after another in
-the one loop of :meth:`ForestTrainer.learn`, for host and device growth
+the one loop of :meth:`ForestTrainer.learn` (each by
+:meth:`ForestTrainer.grow_tree`), for host and device growth
 alike: JAX's fused forest, every tree in one dispatch, is the TPU's idiom
 for the same trees.
 """
@@ -715,6 +716,20 @@ def _as_labels(labels) -> np.ndarray:
     return labels[:, None] if labels.ndim == 1 else labels
 
 
+@dataclass
+class TrainingData:
+    """A training set staged on one device for :meth:`ForestTrainer.grow_tree`."""
+
+    x: torch.Tensor  # [N, D] float32
+    labels: np.ndarray  # [N, L] host labels (bootstrap and class weights)
+    labels_dev: torch.Tensor  # [N, L] int64
+    freqs: torch.Tensor  # [L, C_max] inverted class frequency per layer
+    bins: Optional[torch.Tensor]  # [N, D] bin indices (binned search)
+    boundaries: Optional[torch.Tensor]  # [D, B-1] (binned search)
+    class_counts: List[int]
+    multi_label: bool
+
+
 class ForestTrainer:
     """RandomForestLearner equivalent over dense feature/label tensors on
     one device (``"cuda"`` by default; ``"cpu"`` runs the same torch ops)."""
@@ -722,6 +737,87 @@ class ForestTrainer:
     def __init__(self, config: TrainerConfig, device: torch.device | str = "cuda"):
         self.config = config
         self.device = resolve_device(device)
+
+    def prepare(
+        self,
+        features,  # [N, D] float32, numpy or a tensor (kept on its device)
+        labels,  # [N, L] int (all >= 0), numpy or a tensor
+        class_counts: Optional[Sequence[int]] = None,
+        multi_label: Optional[bool] = None,
+    ) -> TrainingData:
+        """Stage a training set on this trainer's device."""
+        if isinstance(features, torch.Tensor):
+            x_full = features.to(device=self.device, dtype=torch.float32)
+        else:
+            x_full = torch.from_numpy(
+                np.ascontiguousarray(features, dtype=np.float32)
+            ).to(self.device)
+        x_full = x_full.contiguous()
+        labels = _as_labels(labels)
+        num_layers = labels.shape[1]
+        if multi_label is None:
+            multi_label = num_layers > 1
+        if class_counts is None:
+            class_counts = [int(labels[:, l].max()) + 1 for l in range(num_layers)]
+        c_max = max(class_counts)
+        freqs_np = np.zeros((num_layers, c_max), np.float32)
+        for l in range(num_layers):
+            freqs_np[l, : class_counts[l]] = _inverted_class_frequency(
+                labels[:, l].astype(np.int64), class_counts[l]
+            )
+        bins = bnd = None
+        if self.config.split_bins > 0 and self.config.device_growth:
+            bins, bnd = build_feature_bins(x_full, num_bins=self.config.split_bins)
+        return TrainingData(
+            x=x_full,
+            labels=labels,
+            labels_dev=torch.from_numpy(labels.astype(np.int64)).to(self.device),
+            freqs=torch.from_numpy(freqs_np).to(self.device),
+            bins=bins,
+            boundaries=bnd,
+            class_counts=[int(c) for c in class_counts],
+            multi_label=bool(multi_label),
+        )
+
+    def grow_tree(self, data: TrainingData, t: int,
+                  progress: bool = False) -> TreeArrays:
+        """Grow tree ``t`` from its own stream ``default_rng((seed, t))`` and
+        refit its leaf histograms on the whole set: the same tree whichever
+        trees were grown before it, and on whichever device."""
+        cfg = self.config
+        start = time.perf_counter()
+        n = data.x.shape[0]
+        c_max = max(data.class_counts)
+        rng = np.random.default_rng((cfg.seed, t))
+        idx = _bootstrap(rng, cfg, n, cfg.num_bootstrap_examples or n)
+        idx_dev = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+        cw = _weights_or_none(
+            _tree_class_weights(cfg, data.labels[idx], len(idx), c_max),
+            self.device)
+        xb, yb = data.x[idx_dev], data.labels_dev[idx_dev]
+        if cfg.device_growth:
+            tables = grow_tree_device(
+                xb, yb, _tree_seed(rng), cw, cfg, c_max,
+                xb=None if data.bins is None else data.bins[idx_dev],
+                boundaries=data.boundaries,
+            )
+        else:
+            tables = _grow_tree(xb, yb, cw, cfg, rng, c_max)
+        raw = _leaf_histograms_all(data.x, data.labels_dev, data.freqs, tables,
+                                   c_max)
+        sf, th, lc, _ = tables.numpy()
+        tree = TreeArrays(
+            split_feature=sf, threshold=th, left_child=lc,
+            leaf_hist=_smooth_histograms(
+                raw.cpu().numpy(), lc, data.class_counts, cfg.smoothing),
+        )
+        if progress:
+            log.info(
+                "Finished tree %d/%d: %d nodes, depth %d, %.1fs",
+                t + 1, cfg.num_trees, tables.num_nodes,
+                int(tables.depth.max()), time.perf_counter() - start,
+            )
+        return tree
 
     def learn(
         self,
@@ -734,23 +830,9 @@ class ForestTrainer:
     ) -> Forest:
         """Train the forest; with ``checkpoint_path``, save after each tree
         and resume from a partial checkpoint."""
-        if isinstance(features, torch.Tensor):
-            x_full = features.to(device=self.device, dtype=torch.float32)
-        else:
-            x_full = torch.from_numpy(
-                np.ascontiguousarray(features, dtype=np.float32)
-            ).to(self.device)
-        x_full = x_full.contiguous()
-        labels = _as_labels(labels)
-        n, d = x_full.shape
-        num_layers = labels.shape[1]
-        if multi_label is None:
-            multi_label = num_layers > 1
-        if class_counts is None:
-            class_counts = [int(labels[:, l].max()) + 1 for l in range(num_layers)]
-        c_max = max(class_counts)
         cfg = self.config
-        n_bootstrap = cfg.num_bootstrap_examples or n
+        data = self.prepare(features, labels, class_counts, multi_label)
+        class_counts, multi_label = data.class_counts, data.multi_label
 
         start_tree = 0
         trees: List[TreeArrays] = []
@@ -765,51 +847,8 @@ class ForestTrainer:
                     log.info("Resuming training at tree %d/%d",
                              start_tree + 1, cfg.num_trees)
 
-        labels_dev = torch.from_numpy(labels.astype(np.int64)).to(self.device)
-        freqs_np = np.zeros((num_layers, c_max), np.float32)
-        for l in range(num_layers):
-            freqs_np[l, : class_counts[l]] = _inverted_class_frequency(
-                labels[:, l].astype(np.int64), class_counts[l]
-            )
-        freqs_dev = torch.from_numpy(freqs_np).to(self.device)
-
-        bins_full = bnd = None
-        if cfg.split_bins > 0 and cfg.device_growth:
-            bins_full, bnd = build_feature_bins(x_full, num_bins=cfg.split_bins)
-
         for t in range(start_tree, cfg.num_trees):
-            start = time.perf_counter()
-            # Deterministic per-tree stream: resume-safe and shardable.
-            rng = np.random.default_rng((cfg.seed, t))
-            idx = _bootstrap(rng, cfg, n, n_bootstrap)
-            idx_dev = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-            yb = labels[idx]
-            cw = _weights_or_none(_tree_class_weights(cfg, yb, len(idx), c_max),
-                             self.device)
-            if cfg.device_growth:
-                tables = grow_tree_device(
-                    x_full[idx_dev], labels_dev[idx_dev], _tree_seed(rng), cw,
-                    cfg, c_max,
-                    xb=None if bins_full is None else bins_full[idx_dev],
-                    boundaries=bnd,
-                )
-            else:
-                tables = _grow_tree(x_full[idx_dev], labels_dev[idx_dev], cw,
-                                    cfg, rng, c_max)
-            raw = _leaf_histograms_all(x_full, labels_dev, freqs_dev, tables,
-                                       c_max)
-            sf, th, lc, _ = tables.numpy()
-            trees.append(TreeArrays(
-                split_feature=sf, threshold=th, left_child=lc,
-                leaf_hist=_smooth_histograms(
-                    raw.cpu().numpy(), lc, class_counts, cfg.smoothing),
-            ))
-            if progress:
-                log.info(
-                    "Finished tree %d/%d: %d nodes, depth %d, %.1fs",
-                    t + 1, cfg.num_trees, tables.num_nodes,
-                    int(tables.depth.max()), time.perf_counter() - start,
-                )
+            trees.append(self.grow_tree(data, t, progress))
             if checkpoint_path is not None:
                 from ..utils.checkpoint import TrainingCheckpoint
 

@@ -657,3 +657,30 @@ def test_resize_u8_on_card_equals_cpu(dev, out):
         np.random.default_rng(10).integers(0, 256, (480, 640, 3), dtype=np.uint8))
     got = resize_bilinear_u8(img.to(dev), *out)
     assert torch.equal(got.cpu(), resize_bilinear_u8(img, *out))
+
+
+def test_dryrun_on_card(dev):
+    """The multi-rank dry run with 8 ranks sharing the card over gloo."""
+    from rovinasemanticsegmentation_tpu_torch.parallel.dryrun import dryrun
+
+    dryrun(8, "cuda")
+
+
+def test_tree_parallel_on_card_equals_sequential(dev):
+    from rovinasemanticsegmentation_tpu_torch.parallel.tree_parallel import (
+        learn_forest_parallel,
+    )
+    from rovinasemanticsegmentation_tpu_torch.train.forest_trainer import (
+        ForestTrainer,
+        TrainerConfig,
+    )
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2000, 16)).astype(np.float32)
+    y = ((x[:, 0] > 0) + 2 * (x[:, 3] > 0.5)).astype(np.int32)
+    cfg = TrainerConfig(num_trees=4, max_depth=8, min_split_examples=5, seed=3)
+    par = learn_forest_parallel(cfg, x, y, class_counts=[4],
+                                devices=[dev, dev, dev])
+    seq = ForestTrainer(cfg, dev).learn(x, y, class_counts=[4], progress=False)
+    for f in ("split_feature", "threshold", "left_child", "leaf_hist"):
+        np.testing.assert_array_equal(getattr(par, f), getattr(seq, f))
