@@ -143,6 +143,13 @@ or ALU) over that pipe's rate.
    the card at phase 11(c)'s size, equal to the sequential trainer. Its A and
    B launches, summed over the ranks of the frame step, are the
    ``launches_parallel`` entries.
+15. the port's bench (``python -m rovinasemanticsegmentation_tpu_torch.bench
+   --epochs 3 --curve-epochs 0``) in a process of its own, on the
+   card: each cell's line (``workers_b10``, ``stream_b10``) must be there
+   with ``correct: true`` and the ``gpu`` platform, and kernels A, its
+   ``pack_lab`` and B must have launched in each cell's timed epochs (their
+   sum over the cells is each kernel's ``launches_bench`` entry); its
+   keyframes/s and traced numbers are printed.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel results (``launches``: the serving run of phase 4 for A and B,
@@ -366,102 +373,6 @@ def time_launch(launch, reps, warmup=2) -> float:
     return start.elapsed_time(end) / reps
 
 
-# H100 SXM data sheet (700 W): device memory at 3.35 TB/s. Integer work is
-# counted as 32-bit instructions per issue pipe: the FMA pipe (IMUL, IMAD)
-# and the ALU pipe (shifts, logic, compares, IADD3) each issue 64 per SM per
-# clock and run at the same time (the CUDA programming guide's throughput
-# table for compute capability 9.0), 132 SMs at the 1.98 GHz boost clock of
-# the data sheet's float32 peak of 67 TFLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-PIPE_OPS_PER_S = 132 * 64 * 1.98e9
-# 32-bit instructions per output byte of a bilinear 8U resample, by pipe:
-# four multiplies and two multiply-adds with the rounding term, one shift.
-RESAMPLE_OPS = {"fma": 6, "alu": 1}
-# Per descent level: field shift and mask, the compare, the child add.
-LEVEL_OPS = {"alu": 4}
-# Per pixel of the Lab pack: two shifts and two ors.
-PACK_OPS = {"alu": 4}
-
-
-def bound(nbytes: float, ops: dict, count: int) -> dict:
-    """The least time the card could take: the larger of the bytes over the
-    memory rate and the busiest pipe's instructions (``ops`` per unit times
-    ``count`` units) over its rate."""
-    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    pipe_ops = max(ops.values()) * count
-    by_ops = 1e3 * pipe_ops / PIPE_OPS_PER_S
-    return dict(bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations",
-                bound_bytes=int(nbytes), bound_ops=int(pipe_ops))
-
-
-def descent_reads(feats, forest):
-    """What the descent must read on ``feats``, from the plain descent on
-    the card: a [P, D] mask of the (point, feature) pairs it compares, the
-    number of distinct (tree, node) records it loads, the distinct (tree,
-    leaf) histograms it sums, its levels, and its leaf ids."""
-    import torch
-
-    records = forest.records
-    num_trees, n_nodes, _ = records.shape
-    p, d = feats.shape
-    dev = feats.device
-    fmask = (1 << forest.feat_bits) - 1
-    trees = torch.arange(num_trees, device=dev)[None, :]
-    points = torch.arange(p, device=dev)[:, None].expand(p, num_trees)
-    node = torch.zeros((p, num_trees), dtype=torch.int64, device=dev)
-    touched = torch.zeros((p, d), dtype=torch.bool, device=dev)
-    visited = torch.zeros((num_trees, n_nodes), dtype=torch.bool, device=dev)
-    levels = 0
-    for _ in range(forest.max_depth):
-        meta = records[..., 0][trees, node]
-        visited[trees.expand(p, num_trees), node] = True
-        left = meta >> forest.feat_bits
-        active = left != 0
-        n_active = int(active.sum())
-        if n_active == 0:
-            break
-        levels += n_active
-        f = (meta & fmask).long()
-        touched[points[active], f[active]] = True
-        x = feats[points, f]
-        thr = records[..., 1].view(torch.float32)[trees, node]
-        node = torch.where(active, left.long() + (x >= thr).long(), node)
-    reached = torch.zeros_like(visited)
-    reached[trees.expand(p, num_trees), node] = True
-    return dict(touched=touched, records=int(visited.sum()),
-                leaves=int(reached.sum()), levels=levels,
-                leaf_ids=node.to(torch.int32))
-
-
-def descent_bound(reads, forest, layout, with_histograms=True) -> dict:
-    """Kernel B's (or C''s, without histograms) bound on rows in ``layout``:
-    each compared feature once (a patch byte, or 4 bytes), each loaded node
-    record (8 B) and summed leaf histogram once, the outputs once."""
-    touched = reads["touched"]
-    p, d = touched.shape
-    pc = layout.patch_bytes
-    feature_bytes = (int(touched[:, :pc].sum())
-                     + 4 * int(touched[:, pc:].sum()))
-    num_trees, _, num_layers, c_max = forest.leaf_hist.shape
-    nbytes = feature_bytes + 8 * reads["records"] + 4 * p * num_trees
-    if with_histograms:
-        lc = num_layers * c_max
-        nbytes += 4 * lc * reads["leaves"] + 4 * p * lc
-    return dict(bound(nbytes, LEVEL_OPS, reads["levels"]),
-                feature_bytes=feature_bytes)
-
-
-def resample_bound(image_bytes, depth_grid, patch_bytes, row_bytes) -> dict:
-    """Kernel A's (and D''s) bound: the image and depth grid read once,
-    every output row written once, ``RESAMPLE_OPS`` per patch byte of a
-    point with depth."""
-    points = depth_grid.numel()
-    valid = int((depth_grid > 0).sum())
-    nbytes = image_bytes + 4 * points + row_bytes * points
-    return bound(nbytes, RESAMPLE_OPS, patch_bytes * valid)
-
-
 def http_json(url, body=None):
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(url, data=data,
@@ -549,6 +460,16 @@ def run(card: str) -> dict:
         SegmentationServiceServer,
     )
     from rovinasemanticsegmentation_tpu_torch.utils.imageio import save_ppm
+    from rovinasemanticsegmentation_tpu_torch.utils.profiling import (
+        device_busy_ms,
+    )
+    from rovinasemanticsegmentation_tpu_torch.utils.roofline import (
+        PACK_OPS,
+        bound,
+        descent_bound,
+        descent_reads,
+        resample_bound,
+    )
     from rovinasemanticsegmentation_tpu_torch.cli import dense_inference
     from rovinasemanticsegmentation_tpu_torch.cli import (
         test_multi as cli_test_multi,
@@ -1401,6 +1322,10 @@ def run(card: str) -> dict:
     for name, k in launches14.items():
         results[name]["launches_parallel"] = k
 
+    # ---- phase 15: the port's bench, short
+    for name, k in bench_phase(card).items():
+        results[name]["launches_bench"] = k
+
     # No single PyTorch call computes any of these functions, so no library
     # call is timed beside them.
     return {
@@ -1905,14 +1830,50 @@ def parallel_phase(card: str, dev, frames, calib, forest_np, cloud,
     return launches
 
 
-def device_busy_ms(events) -> float:
-    """The union of the device activities' intervals, in ms."""
-    busy_us, edge = 0.0, float("-inf")
-    for e in sorted(events, key=lambda e: e.time_range.start):
-        lo, hi = max(e.time_range.start, edge), e.time_range.end
-        busy_us += max(0.0, hi - lo)
-        edge = max(edge, hi)
-    return busy_us / 1000
+def bench_phase(card: str) -> dict:
+    """Phase 15: the port's bench at 3 timed epochs per cell, no curve; ->
+    each kernel's launches summed over the cells' timed epochs."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rovinasemanticsegmentation_tpu_torch.bench",
+         "--epochs", "3", "--curve-epochs", "0"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900,
+    )
+    check(proc.returncode == 0, f"the bench exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    lines = [json.loads(line) for line in proc.stdout.splitlines()
+             if line.startswith("{")]
+    cells = {line["cell"]: line for line in lines if "cell" in line}
+    check(sorted(cells) == ["stream_b10", "workers_b10"],
+          f"the bench's cells: {sorted(cells)}")
+    check(lines[-1].get("summary") is True and lines[-1]["correct"],
+          f"the bench's summary: {lines[-1]}")
+    launches = {}
+    for name, cell in cells.items():
+        check(cell["correct"], f"bench cell {name}: not correct: "
+              f"{cell['checks']}")
+        check(cell["device"]["platform"] == "gpu",
+              f"bench cell {name} ran on {cell['device']}")
+        for kernel, n in cell["launches"].items():
+            check(n > 0, f"bench cell {name}: kernel {kernel} was not launched")
+            launches[kernel] = launches.get(kernel, 0) + n
+        kfs, trace = cell["keyframes_per_s"], cell["trace"]
+        stages = trace["stages"]
+        print(f"phase 15: bench {name}: {kfs['median']:.3f} keyframes/s "
+              f"(quartiles {kfs['q1']:.3f}-{kfs['q3']:.3f}, n {kfs['n']}); "
+              f"traced epoch: device busy "
+              f"{trace['device_busy_ms_per_keyframe']:.3f} ms per keyframe, "
+              f"idle {trace['device_idle_share']:.1%}, "
+              f"{trace['device_activities_per_keyframe']:.1f} activities per "
+              f"keyframe; replay: frame path "
+              f"{stages['frame path']['activities_per_keyframe']:.1f} per "
+              f"keyframe, map {stages['map']['device_ms_per_map']:.3f} ms and "
+              f"{stages['map']['activities_per_map']:.1f} activities per map; "
+              f"overflows {cell['lattice_overflow_maps']} of "
+              f"{cell['maps_attempted']} maps ({card})")
+    print(f"phase 15: the bench passed its checks in "
+          f"{time.perf_counter() - t0:.3f} s; launches {launches}")
+    return launches
 
 
 def crf_learning_phase(card: str, dev) -> None:
@@ -1929,7 +1890,10 @@ def crf_learning_phase(card: str, dev) -> None:
         intersection_over_union,
     )
     from rovinasemanticsegmentation_tpu_torch.utils.imageio import save_ppm
-    from rovinasemanticsegmentation_tpu_torch.utils.profiling import StepTimer
+    from rovinasemanticsegmentation_tpu_torch.utils.profiling import (
+        StepTimer,
+        device_busy_ms,
+    )
 
     im, anno = dl.synthetic_pair(240, 320, seed=13)
     values, grads, learners = {}, {}, {}

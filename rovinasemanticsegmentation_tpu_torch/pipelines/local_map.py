@@ -212,6 +212,9 @@ class LocalMapPipeline:
         self._m_bucket = 1 << 14  # vertex slots of the device build
         self._m_checked = set()  # cloud sizes whose bucket was validated
         self._pending_m: List[_VertexCountProbe] = []
+        # Maps whose vertex count was seen to overflow their bucket (each
+        # labelled all Unknown on the device).
+        self.overflow_maps = 0
 
     def _node_transforms(self, pose):
         """World -> camera (rotation [C3, 3, 3], translation [C3, 3]) on the
@@ -356,8 +359,9 @@ class LocalMapPipeline:
         A map that ran without a synchronisation and overflowed its bucket
         was labelled all Unknown on the device; here its count is seen, the
         bucket grows to at least 1.25x it, and the checked sizes are cleared
-        so that the next map of each size synchronises again.
-        ``blocking=True`` waits for every pending count (:meth:`flush`).
+        so that the next map of each size synchronises again; each such map
+        adds one to ``overflow_maps``. ``blocking=True`` waits for every
+        pending count (:meth:`flush`).
         """
         still_pending = []
         overflow_max = 0
@@ -368,6 +372,7 @@ class LocalMapPipeline:
             count = probe.value()
             if count > probe.bucket:
                 overflow_max = max(overflow_max, count)
+                self.overflow_maps += 1
         self._pending_m = still_pending
         if overflow_max:
             while self._m_bucket < overflow_max * 1.25:

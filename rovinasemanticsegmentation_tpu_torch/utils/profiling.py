@@ -113,3 +113,14 @@ def device_trace(log_dir: Optional[str]) -> Iterator[None]:
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_busy_ms(events) -> float:
+    """The union of the intervals of ``torch.profiler`` device activities,
+    in ms: the time the device was busy, overlaps counted once."""
+    busy_us, edge = 0.0, float("-inf")
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, edge), e.time_range.end
+        busy_us += max(0.0, hi - lo)
+        edge = max(edge, hi)
+    return busy_us / 1000

@@ -206,7 +206,7 @@ def test_port_imports_without_jax():
         "cli.evaluate", "cli.test", "cli.test_multi", "cli.dense_inference",
         "utils.config", "utils.calibration", "utils.labels", "utils.imageio",
         "utils.metrics", "features.dataset", "serve.camera", "native",
-        "ops.feature_rows",
+        "ops.feature_rows", "bench", "scripts.bench_train", "utils.roofline",
     )} <= names
 
 
