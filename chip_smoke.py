@@ -83,15 +83,20 @@ or ALU) over that pipe's rate.
    21 labels, half of its annotation unknown, with both lattice builds on
    the card and on the CPU; card and CPU labels, and the two builds, must
    agree on >= 99.99% of the pixels; ms per build on the card (median of
-   3) and the vertex counts;
+   3) and the vertex counts; then ``scripts/bench_dense_inference.py
+   --reps 1`` in a process of its own, which must exit 0 with a last line
+   that parses (golden check skipped, both builds profiled on the card);
 11. forest training (``training_phase``), the fixture forest's recipe
    (``scripts/make_bench_forest.py``: 12 VGA frames through kernel A, ~1.45e5
    samples x 366 features, 4 trees of depth <= 30), after kernel A bit-exact
    with its plain version on one of its frames at stride 5: (a) the exact search
    with device growth and (b) the binned search (256 bins), each trained
-   twice (the same forest both times), with the wall seconds of extraction
-   and training, samples per second, nodes per tree and the deepest leaf,
-   beside ``resources/bench_forest.dat``'s; (c) the card's trainer against
+   twice by ``learn`` (all 4 trees in one level loop; the same forest both
+   times) and once by the tree loop (``grow_tree`` per tree), which must
+   grow the same forest bit for bit, with the wall seconds and peak
+   allocated device memory of each, the seconds of extraction, samples per
+   second, nodes per tree and the deepest leaf, beside
+   ``resources/bench_forest.dat``'s; (c) the card's trainer against
    the CPU port on 2 frames (2 trees, depth <= 12): differing nodes, each
    tree's first one a near-tie (``train/compare.py``), then the 12 frames'
    features extracted on the CPU against the card's (every column equal but
@@ -140,7 +145,8 @@ or ALU) over that pipe's rate.
    agreeing on >= 99.9% of the labels with the single card's host-lattice
    ``run_device``; the dry run's part 5 (each data rank's streaming share)
    equal to the worker path; (c) ``learn_forest_parallel`` on two slots of
-   the card at phase 11(c)'s size, equal to the sequential trainer. Its A and
+   the card at phase 11(c)'s size, equal to the sequential trainer, and the
+   dry run's part 4: the fused forest equal to the tree loop. Its A and
    B launches, summed over the ranks of the frame step, are the
    ``launches_parallel`` entries.
 15. the port's bench (``python -m rovinasemanticsegmentation_tpu_torch.bench
@@ -256,26 +262,6 @@ def make_cloud(rng, frames, first):
         np.concatenate(pts).astype(np.float32),
         np.concatenate(cols).astype(np.float32),
     )
-
-
-def make_demo_pair(rng, h, w, labels=21):
-    """A dense_inference input: an image of noisy piecewise-constant colour
-    regions (Voronoi cells of 24 seeds) and its annotation, each region in
-    one of ``labels`` colours, half of the pixels unknown (black)."""
-    ys, xs = np.mgrid[0:h, 0:w]
-    seeds = rng.uniform([0, 0], [h, w], (24, 2))
-    region = np.argmin((ys[..., None] - seeds[:, 0]) ** 2
-                       + (xs[..., None] - seeds[:, 1]) ** 2, axis=-1)
-    region_label = np.concatenate([np.arange(labels),
-                                   rng.integers(0, labels, 24 - labels)])
-    colours = rng.integers(30, 226, (24, 3))
-    im = colours[region] + rng.normal(0, 12, (h, w, 3))
-    i = np.arange(labels)[:, None]
-    palette = np.concatenate([(i * 37 + 20) % 256, (i * 91 + 40) % 256,
-                              (i * 53 + 60) % 256], axis=1)
-    anno = palette[region_label[region]]
-    anno[rng.random((h, w)) < 0.5] = 0
-    return (np.clip(im, 0, 255).astype(np.uint8), anno.astype(np.uint8))
 
 
 def write_eval_dataset(root, rng, frames, calib):
@@ -450,6 +436,9 @@ def run(card: str) -> dict:
     from rovinasemanticsegmentation_tpu_torch.scripts import (
         exp_descent,
         exp_patches,
+    )
+    from rovinasemanticsegmentation_tpu_torch.scripts.bench_dense_inference import (
+        make_demo_pair,
     )
     from rovinasemanticsegmentation_tpu_torch.scripts.profile_frames import (
         FRAME_SEED,
@@ -1305,6 +1294,28 @@ def run(card: str) -> dict:
     print(f"phase 10: dense_inference 320x240, 21 labels, 5 iterations: "
           f"device build {ms10[True]:.3f} ms, host build {ms10[False]:.3f} ms "
           f"per image on the card (median of 3) ({card})")
+    # The timing script, once, in a process of its own.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "rovinasemanticsegmentation_tpu_torch.scripts.bench_dense_inference",
+         "--reps", "1"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, "scripts/bench_dense_inference.py exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(line["golden"] == "skipped" and line["device"]["platform"] == "gpu"
+          and set(line["profile"]) == {"device", "host"} and "value" in line,
+          f"scripts/bench_dense_inference.py printed {line}")
+    print(f"phase 10: scripts/bench_dense_inference.py --reps 1 in "
+          f"{time.perf_counter() - t0:.3f} s: warm ms per image "
+          + "; ".join(f"{b} build " + ", ".join(
+              f"{r['warm_ms']:.3f}" for r in line["per_image"][b].values())
+              for b in ("device", "host"))
+          + "; one image profiled: " + "; ".join(
+              f"{b} build {p['profiled_wall_ms']:.3f} ms wall, device busy "
+              f"{p['device_busy_ms']:.3f} ms, {p['device_activities']} "
+              f"activities" for b, p in line["profile"].items())
+          + f" ({card})")
 
     # ---- phase 11: forest training on the card
     for name, k in training_phase(card, dev, reset_counts).items():
@@ -1388,6 +1399,7 @@ def training_phase(card: str, dev, reset_counts) -> dict:
         patch_inputs,
     )
     from rovinasemanticsegmentation_tpu_torch.models.forest import (
+        build_forest,
         forest_from_numpy,
         load_forest,
         save_forest,
@@ -1417,6 +1429,20 @@ def training_phase(card: str, dev, reset_counts) -> dict:
         out = fn()
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
+
+    def timed_peak(fn):
+        """-> (result, wall s, peak allocated MB)."""
+        torch.cuda.reset_peak_memory_stats()
+        out, s = timed(fn)
+        return out, s, torch.cuda.max_memory_allocated() / 2**20
+
+    def tree_loop(cfg):
+        """The forest grown one tree after another (``grow_tree``)."""
+        trainer = ForestTrainer(cfg, dev)
+        data = trainer.prepare(x, y, class_counts=counts)
+        return build_forest([trainer.grow_tree(data, t)
+                             for t in range(cfg.num_trees)],
+                            counts, multi_label=data.multi_label)
 
     def shape(f):
         return f"nodes per tree {f.node_counts}, deepest leaf {f.max_depth}"
@@ -1454,17 +1480,25 @@ def training_phase(card: str, dev, reset_counts) -> dict:
           f"{recipe.TRAIN_STRIDE} in {extract_s:.3f} s ({card})")
     forests = {}
     for part, mode, kw in (("a", "exact", {}), ("b", "binned", {"split_bins": 256})):
+        cfg = recipe.trainer_config(**kw)
         runs = []
         for _ in range(2):
-            f, s = timed(lambda: ForestTrainer(recipe.trainer_config(**kw), dev)
-                         .learn(x, y, class_counts=counts, progress=False))
-            runs.append((f, s))
+            runs.append(timed_peak(lambda: ForestTrainer(cfg, dev).learn(
+                x, y, class_counts=counts, progress=False)))
         check(same_forest(runs[0][0], runs[1][0]),
               f"two {mode} trainings on the card grew different forests")
+        loop, loop_s, loop_mb = timed_peak(lambda: tree_loop(cfg))
+        check(same_forest(loop, runs[0][0]),
+              f"the fused {mode} forest differs from the tree loop's")
         forests[mode] = runs[0][0]
-        print(f"phase 11({part}): {mode} search, 4 trees, depth <= 30: "
-              f"{runs[0][1]:.3f} s, again {runs[1][1]:.3f} s (the same forest); "
-              f"{n / runs[1][1]:.0f} samples/s; {shape(runs[0][0])} ({card})")
+        print(f"phase 11({part}): {mode} search, 4 trees, depth <= 30, all "
+              f"in one level loop: {runs[0][1]:.3f} s (peak {runs[0][2]:.1f} "
+              f"MB allocated), again {runs[1][1]:.3f} s ({runs[1][2]:.1f} MB; "
+              f"the same forest); {n / runs[1][1]:.0f} samples/s; "
+              f"{shape(runs[0][0])} ({card})")
+        print(f"phase 11({part}): the tree loop (grow_tree per tree) grew the "
+              f"same forest bit for bit in {loop_s:.3f} s (peak {loop_mb:.1f} "
+              f"MB allocated) ({card})")
     fixture = load_forest(FIXTURE, class_counts=counts)
     print(f"phase 11(a): resources/bench_forest.dat: {shape(fixture)}")
 
@@ -1826,6 +1860,10 @@ def parallel_phase(card: str, dev, frames, calib, forest_np, cloud,
     print(f"phase 14(c): learn_forest_parallel on [{dev}, {dev}] == the "
           f"sequential trainer ({len(x2)} samples, 2 trees, nodes "
           f"{par.node_counts}): {par_s:.3f} s, sequential {seq_s:.3f} s ({card})")
+    inp = dryrun.crf_inputs()
+    fused = dryrun.check_fused_forest(inp["xs"], inp["ys"], dev)
+    print(f"phase 14(c): dry run part 4: the fused forest == the tree loop on "
+          f"the card (nodes {fused.node_counts})")
     print(f"phase 14: {time.perf_counter() - t_phase:.3f} s ({card})")
     return launches
 

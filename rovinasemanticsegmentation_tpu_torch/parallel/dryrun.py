@@ -25,8 +25,9 @@ CPU and on a card the ranks share, ``nccl`` with a card per rank) runs
 
 Part 3, tree-parallel training, runs in this process on threads over two
 device slots (``parallel/tree_parallel.py``) and must equal the sequential
-trainer. The JAX dry run's part 4 (its fused-forest growth against per-tree
-growth) has no counterpart: the port grows every forest in one tree loop.
+trainer; part 4, the fused forest (``ForestTrainer.learn``: every tree in
+one level loop, refit in one descent), runs in this process too and must
+equal the tree loop (``ForestTrainer.grow_tree`` per tree) bit for bit.
 
 The functions below that take a mesh run in every rank; each returns numpy
 arrays, which go back to the parent.
@@ -418,8 +419,32 @@ def check_streaming(shares: Sequence[dict], case: dict, device) -> None:
                     raise AssertionError(f"part 5: {key} {i} differ")
 
 
+# Parts 3 and 4's trainer, the JAX dry run's.
+TRAIN_CONFIG = dict(num_trees=2, max_depth=5, min_split_examples=10, seed=7)
+
+
+def check_fused_forest(xs: np.ndarray, ys: np.ndarray, device):
+    """Part 4: ``learn``'s fused forest against the tree loop
+    (``grow_tree`` per tree) on the same data, every array bit-equal; ->
+    the fused forest."""
+    from ..models.forest import build_forest
+    from ..train.forest_trainer import ForestTrainer, TrainerConfig
+
+    trainer = ForestTrainer(TrainerConfig(**TRAIN_CONFIG), device)
+    fused = trainer.learn(xs, ys[:, None], class_counts=[3], progress=False)
+    data = trainer.prepare(xs, ys[:, None], class_counts=[3])
+    loop = build_forest(
+        [trainer.grow_tree(data, t) for t in range(trainer.config.num_trees)],
+        [3], multi_label=False)
+    for f in ("split_feature", "threshold", "left_child", "leaf_hist"):
+        if not np.array_equal(getattr(fused, f), getattr(loop, f)):
+            raise AssertionError(f"part 4: the fused forest's {f} differs "
+                                 "from the tree loop's")
+    return fused
+
+
 def dryrun(n_ranks: int = 8, device: str = "cuda", timeout: float = 300.0) -> None:
-    """Run parts 1, 2, 2b, 2c, 3 and 5 and raise on the first mismatch."""
+    """Run parts 1, 2, 2b, 2c, 3, 4 and 5 and raise on the first mismatch."""
     from ..device import resolve_device
     from ..models.lattice import build_lattice
     from ..train.forest_trainer import ForestTrainer, TrainerConfig
@@ -466,13 +491,16 @@ def dryrun(n_ranks: int = 8, device: str = "cuda", timeout: float = 300.0) -> No
                 "replicated on the random cloud, vertex on the trajectory")
 
     # 3. Tree-parallel training equals the sequential trainer.
-    cfg = TrainerConfig(num_trees=2, max_depth=5, min_split_examples=10, seed=7)
+    cfg = TrainerConfig(**TRAIN_CONFIG)
     par = learn_forest_parallel(cfg, inp["xs"], inp["ys"], class_counts=[3],
                                 devices=[dev, dev])
     seq = ForestTrainer(cfg, dev).learn(inp["xs"], inp["ys"][:, None],
                                         class_counts=[3], progress=False)
     for f in ("split_feature", "threshold", "left_child", "leaf_hist"):
         np.testing.assert_array_equal(getattr(par, f), getattr(seq, f))
+
+    # 4. The fused forest equals the tree loop.
+    check_fused_forest(inp["xs"], inp["ys"], dev)
 
     # 5. The streaming step's shares against the single-process worker path.
     check_streaming([o[3] for o in out], case, dev)
@@ -481,7 +509,8 @@ def dryrun(n_ranks: int = 8, device: str = "cuda", timeout: float = 300.0) -> No
         f"dryrun: {n_ranks} ranks ({shape}) on {device}: sharded batch + "
         "sharded CRF (points-major / transposed / vertex-sharded + "
         f"auto-selection {out[0][1]['variant']} / {out[0][2]['variant']}) + "
-        "tree-parallel training (== sequential) + sharded streaming step "
+        "tree-parallel training (== sequential) + fused forest (== tree "
+        "loop) + sharded streaming step "
         f"(== worker path) OK; world {world_s:.3f} s"
     )
 

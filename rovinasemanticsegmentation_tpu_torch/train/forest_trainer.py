@@ -31,14 +31,24 @@ low word; per-segment class totals and offsets come from integer counts;
 the per-segment argmin is a ``scatter_reduce("amin")`` on the objective and
 then on the position where it is reached (the earliest, as JAX's segmented
 scan keeps). Counts are integer ``bincount``s, never float atomics, so a
-run on the card is deterministic. The level loop is a Python loop with one
-host read per level (the number of splits), and the frontier has its true
-size: the threefry draws do not depend on it, so the port needs none of
-JAX's static buckets or overflow retries. Trees grow one after another in
-the one loop of :meth:`ForestTrainer.learn` (each by
-:meth:`ForestTrainer.grow_tree`), for host and device growth
-alike: JAX's fused forest, every tree in one dispatch, is the TPU's idiom
-for the same trees.
+run on the card is deterministic.
+
+One level loop (:func:`_grow`) grows a list of trees together, as JAX's
+``grow_forest_device`` grows a forest in one dispatch: each level is one
+such step over the concatenated frontiers of the trees that still have one
+(a segment is its tree's frontier offset plus its slot), with one host read
+(each tree's number of splits). Each tree keeps its own bootstrap rows
+(its features are read through them, never copied out), draws, class
+weights, node table and depth, and nothing of one tree's step depends on
+another's, so every tree comes out bit for bit as it grows alone. The
+frontier has its true size, and the threefry draws do not depend on it, so
+none of JAX's static buckets (``_forest_buckets``) or overflow retries are
+needed. :meth:`ForestTrainer.learn` grows the whole forest in this one loop
+and refits it in one descent unless a checkpoint is asked for; then it
+grows one tree at a time (:meth:`ForestTrainer.grow_tree`, the same loop
+with one tree) and saves after each. JAX fuses only device growth; host
+growth goes through the one loop too, each tree drawing from its own numpy
+stream in its own order, so its trees are JAX's per-tree ones.
 """
 
 from __future__ import annotations
@@ -64,6 +74,9 @@ log = logging.getLogger(__name__)
 # Elements of one binned histogram chunk ([slots, F, C, B]); slots are
 # searched in chunks so that a wide frontier does not hold K such tensors.
 _BINNED_CHUNK = 1 << 26
+# Elements of one exact search's class prefixes ([slots, C, Ns]): a forest's
+# level stream holds every tree's samples, so its slots go in chunks past it.
+_EXACT_CHUNK = 1 << 28
 
 
 @dataclass
@@ -163,6 +176,44 @@ def _weights_or_none(class_weights, device=None) -> Optional[torch.Tensor]:
     return None if bool((w == 1).all()) else w
 
 
+def _pair_entropy(
+    left: torch.Tensor,  # integer counts
+    right: torch.Tensor,
+    class_weights: Optional[torch.Tensor],  # broadcastable to the counts
+    weighted: Optional[torch.Tensor],  # broadcastable to the class sum
+    max_count: int,
+    dim: int,
+) -> torch.Tensor:
+    """Both children's :func:`_entropy`: class-weighted where ``weighted``
+    (everywhere when it is None), the unweighted log-table form elsewhere
+    and everywhere when ``class_weights`` is None. A forest's trees keep the
+    form each takes alone."""
+
+    def both(w):
+        return (_entropy(left, w, max_count, dim)
+                + _entropy(right, w, max_count, dim))
+
+    if class_weights is None:
+        return both(None)
+    if weighted is None:
+        return both(class_weights)
+    return torch.where(weighted, both(class_weights), both(None))
+
+
+def _segment_rows(table: torch.Tensor, seg: torch.Tensor, fill) -> torch.Tensor:
+    """``table[seg]`` for a per-segment ``table`` ([F, ...]), ``fill`` where
+    ``seg`` is F (inactive)."""
+    return torch.cat([table, torch.full_like(table[:1], fill)])[seg]
+
+
+def _take(x: torch.Tensor, rows: Optional[torch.Tensor],
+          cols: torch.Tensor) -> torch.Tensor:
+    """``x[rows[i], cols[i, j]]`` ([Ns, J]); ``rows`` None: x's own rows."""
+    if rows is None:
+        return torch.gather(x, 1, cols)
+    return x[rows[:, None], cols]
+
+
 def _count(idx: torch.Tensor, size: int) -> torch.Tensor:
     """Integer histogram of ``idx`` over ``[0, size)``; index ``size`` is the
     drop bin for masked elements."""
@@ -180,9 +231,10 @@ def _split_search(
     vals: torch.Tensor,  # [K, Ns] float32, one row per feature slot
     seg: torch.Tensor,  # [Ns] int64 frontier slot, num_segments = inactive
     cls: torch.Tensor,  # [Ns] int64 class of the node's chosen layer
-    class_weights: Optional[torch.Tensor],  # [C] float32, None = unweighted
+    class_weights: Optional[torch.Tensor],  # [C] or per segment [F, C]; None = unweighted
     num_segments: int,
     num_classes: int,
+    weighted: Optional[torch.Tensor] = None,  # [F] bool: weights apply (None = all)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Best split per (slot, segment): (objective, threshold, left mass,
     right mass), each [K, F]; objective = +inf where no split is valid, and
@@ -224,12 +276,14 @@ def _split_search(
         & (left_mass > 0)
     )
     # Entropy on class-weighted counts; masses stay unweighted (:220-258).
-    cw = None if class_weights is None else class_weights[:, None]
+    # Every slot's stream holds the same segments in the same order.
+    cw = class_weights
+    if cw is not None:
+        cw = (cw[:, None] if cw.dim() == 1
+              else _segment_rows(cw, seg_c[0], 1.0).T)  # [C, Ns]
+    wm = None if weighted is None else _segment_rows(weighted, seg_c[0], False)
     objective = torch.where(
-        valid,
-        _entropy(left, cw, ns, 1) + _entropy(right, cw, ns, 1),
-        torch.inf,
-    )
+        valid, _pair_entropy(left, right, cw, wm, ns, 1), torch.inf)
     threshold = 0.5 * (prev_vals + sorted_vals)
 
     best_obj = torch.full((k, f + 1), torch.inf, device=dev).scatter_reduce(
@@ -270,16 +324,23 @@ def multi_slot_split_search(
     seg: torch.Tensor,  # [Ns] frontier slot per example (F = inactive)
     seg_search: torch.Tensor,  # [Ns] like seg, masking unsearchable nodes
     cls: torch.Tensor,  # [Ns]
-    class_weights: Optional[torch.Tensor],  # [C], None = unweighted
+    class_weights: Optional[torch.Tensor],  # [C] or [F, C], None = unweighted
     num_segments: int,
     num_classes: int,
+    rows: Optional[torch.Tensor] = None,  # [Ns] row of x per example
+    weighted: Optional[torch.Tensor] = None,  # [F] bool (None = all)
 ):
     """All K feature slots of one level as one batched ``[K, Ns]`` search
-    (the JAX code scans the slots one by one); each output is [K, F]."""
+    (the JAX code scans the slots one by one), in chunks of slots past
+    :data:`_EXACT_CHUNK`; each output is [K, F]."""
     seg_c = seg.clamp(max=num_segments - 1)
-    vals = torch.gather(x, 1, feats[seg_c]).T.contiguous()  # [K, Ns]
-    return _split_search(vals, seg_search, cls, class_weights,
-                         num_segments, num_classes)
+    vals = _take(x, rows, feats[seg_c]).T.contiguous()  # [K, Ns]
+    per = max(1, _EXACT_CHUNK // (num_classes * vals.shape[1]))
+    parts = [_split_search(vals[s : s + per], seg_search, cls, class_weights,
+                           num_segments, num_classes, weighted)
+             for s in range(0, vals.shape[0], per)]
+    return parts[0] if len(parts) == 1 else tuple(
+        torch.cat(p) for p in zip(*parts))
 
 
 # ======================================================================
@@ -317,10 +378,11 @@ def _binned_search(
     bins: torch.Tensor,  # [K, Ns] bin index per example per slot
     seg: torch.Tensor,  # [Ns] frontier slot (num_segments = masked)
     cls: torch.Tensor,  # [Ns]
-    class_weights: Optional[torch.Tensor],  # [C], None = unweighted
+    class_weights: Optional[torch.Tensor],  # [C] or [F, C], None = unweighted
     num_segments: int,
     num_classes: int,
     num_bins: int,
+    weighted: Optional[torch.Tensor] = None,  # [F] bool (None = all)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Best boundary per (slot, node) from per-(node, class, bin) counts:
     (objective, boundary index, left mass, right mass), each [K, F]."""
@@ -337,11 +399,11 @@ def _binned_search(
     right = hist.sum(3, keepdim=True) - left
     left_mass = left.sum(2)
     right_mass = right.sum(2)
-    cw = None if class_weights is None else class_weights[:, None]
-    ns = seg.shape[0]
+    cw = None if class_weights is None else class_weights[..., None]
+    wm = None if weighted is None else weighted[:, None]
     objective = torch.where(
         (left_mass > 0) & (right_mass > 0),
-        _entropy(left, cw, ns, 2) + _entropy(right, cw, ns, 2),
+        _pair_entropy(left, right, cw, wm, seg.shape[0], 2),
         torch.inf,
     )  # [K, F, B-1]
     bidx = torch.argmin(objective, dim=2, keepdim=True)  # first minimum
@@ -360,19 +422,21 @@ def multi_slot_split_search_binned(
     seg: torch.Tensor,  # [Ns]
     seg_search: torch.Tensor,  # [Ns] masked
     cls: torch.Tensor,  # [Ns]
-    class_weights: Optional[torch.Tensor],  # [C], None = unweighted
+    class_weights: Optional[torch.Tensor],  # [C] or [F, C], None = unweighted
     num_segments: int,
     num_classes: int,
     num_bins: int,
+    rows: Optional[torch.Tensor] = None,  # [Ns] row of xb per example
+    weighted: Optional[torch.Tensor] = None,  # [F] bool (None = all)
 ):
     """All K slots of one level, binned, in chunks of slots; thresholds are
     read from the boundary table. Each output is [K, F]."""
     seg_c = seg.clamp(max=num_segments - 1)
-    bins = torch.gather(xb, 1, feats[seg_c]).T  # [K, Ns]
+    bins = _take(xb, rows, feats[seg_c]).T  # [K, Ns]
     per = max(1, _BINNED_CHUNK // (num_segments * num_classes * num_bins))
     parts = [
         _binned_search(bins[s : s + per], seg_search, cls, class_weights,
-                       num_segments, num_classes, num_bins)
+                       num_segments, num_classes, num_bins, weighted)
         for s in range(0, bins.shape[0], per)
     ]
     obj, bidx, lm, rm = (torch.cat(p) for p in zip(*parts))
@@ -403,30 +467,32 @@ def node_stats(
 
 
 def _level_core(
-    x: torch.Tensor,  # [Ns, D]
+    x: torch.Tensor,  # [N, D], read through ``rows``
+    rows: torch.Tensor,  # [Ns] row of x per example
     labels: torch.Tensor,  # [Ns, L] int64
-    node_of: torch.Tensor,  # [Ns] int64 tree-node id per example
-    base: int,  # id of the first frontier node
-    table_len: int,  # tree-table length (children are allocated here)
+    node_of: torch.Tensor,  # [Ns] int64 node id per example in its tree's table
+    seg: torch.Tensor,  # [Ns] frontier slot per example, F = off the frontier
+    first: torch.Tensor,  # [F] the first slot of each slot's tree
+    table_len: torch.Tensor,  # [F] each slot's tree-table length
     feats: torch.Tensor,  # [F, K] int64 sampled feature ids per slot
     layers: torch.Tensor,  # [F] int64 chosen layer per slot
     min_split: int,
     min_child: int,
-    class_weights: Optional[torch.Tensor],  # [C], None = unweighted
+    class_weights: Optional[torch.Tensor],  # [F, C] per slot, None = unweighted
+    weighted: Optional[torch.Tensor],  # [F] bool: weights apply (None = all)
     num_classes: int,
-    xb: Optional[torch.Tensor] = None,  # [Ns, D] bin indices (binned mode)
+    xb: Optional[torch.Tensor] = None,  # [N, D] bin indices (binned mode)
     boundaries: Optional[torch.Tensor] = None,  # [D, B-1] (binned mode)
     num_bins: int = 0,  # 0 = exact search
 ):
-    """One level above the depth limit: slot mapping, node stats, stop checks
-    (learning.cpp:521-531), the K-slot search, best-slot selection, child-id allocation and the
-    example partition. The frontier is the consecutive ids ``[base, base +
-    F)``. -> (splitting [F], feature [F], threshold [F], left ids [F],
-    new node_of)."""
+    """One level above the depth limit over a frontier of F slots (one or
+    several trees' frontiers one after another): node stats, stop checks
+    (learning.cpp:521-531), the K-slot search, best-slot selection, child-id
+    allocation and the example partition. A tree's children are allocated
+    at the end of its own table in slot order. -> (splitting [F], feature
+    [F], threshold [F], left ids [F], new node_of)."""
     f = feats.shape[0]
     num_layers = labels.shape[1]
-    seg_raw = node_of - base
-    seg = torch.where((seg_raw >= 0) & (seg_raw < f), seg_raw, f)
     seg_c = seg.clamp(max=f - 1)
     cls = torch.gather(labels, 1, layers[seg_c][:, None])[:, 0]
     cls = torch.where(seg < f, cls, 0)
@@ -438,11 +504,12 @@ def _level_core(
     if num_bins > 0:
         obj_k, thr_k, lm_k, rm_k = multi_slot_split_search_binned(
             xb, boundaries, feats, seg, seg_search, cls, class_weights,
-            f, num_classes, num_bins,
+            f, num_classes, num_bins, rows=rows, weighted=weighted,
         )
     else:
         obj_k, thr_k, lm_k, rm_k = multi_slot_split_search(
             x, feats, seg, seg_search, cls, class_weights, f, num_classes,
+            rows=rows, weighted=weighted,
         )
 
     # Best slot per node; argmin keeps the first minimum, the host sweep's
@@ -459,10 +526,11 @@ def _level_core(
         & (best_rm >= min_child)  # learning.cpp:606
     )
     sp = splitting.to(torch.int64)
-    left_ids = table_len + 2 * (torch.cumsum(sp, 0) - sp)
+    before = torch.cumsum(sp, 0) - sp  # splits in the slots before, all trees
+    left_ids = table_len + 2 * (before - before[first])
 
     sp_e = splitting[seg_c] & (seg < f)
-    xv = torch.gather(x, 1, best_feat[seg_c][:, None])[:, 0]
+    xv = _take(x, rows, best_feat[seg_c][:, None])[:, 0]
     node_new = torch.where(
         sp_e, left_ids[seg_c] + (xv >= best_thr[seg_c]).to(torch.int64),
         node_of,
@@ -488,94 +556,154 @@ class TreeTables:
             self.split_feature, self.threshold, self.left_child, self.depth))
 
 
-# (layers [F], feats [F, K]) for the level at ``depth`` with F live nodes.
-LevelDraws = Callable[[int, int], Tuple[torch.Tensor, torch.Tensor]]
+# (layers [F], feats [F, K]) of the level at ``depth``, given each live
+# tree's (index, frontier size): the live trees' rows one after another.
+LevelDraws = Callable[[int, Sequence[Tuple[int, int]]],
+                      Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _grow(
-    x: torch.Tensor,  # [Ns, D] bootstrap sample on the device
-    labels: torch.Tensor,  # [Ns, L] int64
+    x: torch.Tensor,  # [N, D] the rows the trees' samples index
+    labels: torch.Tensor,  # [N, L] int64
+    rows: Sequence[torch.Tensor],  # per tree: [Ns_t] int64 sample rows of x
     draws: LevelDraws,
-    class_weights: Optional[torch.Tensor],  # [C], None = unweighted
+    class_weights: Sequence[Optional[torch.Tensor]],  # per tree: [C] or None
     cfg: TrainerConfig,
     num_classes: int,
-    xb: Optional[torch.Tensor] = None,
-    boundaries: Optional[torch.Tensor] = None,
-) -> TreeTables:
-    """Grow one tree breadth first. Each level's frontier holds the ids
-    ``[base, base + F)``, and its children are allocated at the end of the
-    table in slot order, as the reference package's host builder and device
-    growth both number them. The loop reads one number per level back from
-    the device: how many nodes split."""
-    ns = x.shape[0]
-    dev = x.device
-    node_of = torch.zeros(ns, dtype=torch.int64, device=dev)
-    levels = []
-    nn, base, f_count, depth = 1, 0, 1, 0
-    # Past max_depth no node splits (JAX's device loop stops there; its host
-    # loop runs one more level that splits nothing).
-    while f_count > 0 and depth <= cfg.max_depth:
-        layers, feats = draws(depth, f_count)
-        splitting, feat, thr, left_ids, node_of = _level_core(
-            x, labels, node_of, base, nn, feats, layers,
-            cfg.min_split_examples, cfg.min_child_split_examples,
-            class_weights, num_classes,
-            xb=xb, boundaries=boundaries,
-            num_bins=cfg.split_bins if xb is not None else 0,
-        )
-        splits = int(splitting.sum())  # the level's one host read
-        levels.append((splitting, feat, thr, left_ids))
-        base, nn, f_count, depth = nn, nn + 2 * splits, 2 * splits, depth + 1
+    xb: Optional[torch.Tensor] = None,  # [N, D] bin indices (binned mode)
+    boundaries: Optional[torch.Tensor] = None,  # [D, B-1] (binned mode)
+) -> List[TreeTables]:
+    """Grow a list of trees breadth first in one level loop.
 
-    zero_i = torch.zeros(f_count, dtype=torch.int64, device=dev)
-    sf = [torch.where(s, f, 0) for s, f, _, _ in levels] + [zero_i]
-    th = [torch.where(s, t, 0.0) for s, _, t, _ in levels]
-    th.append(torch.zeros(f_count, device=dev))
-    lc = [torch.where(s, l, 0) for s, _, _, l in levels] + [zero_i]
-    dep = [torch.full_like(s, d, dtype=torch.int64)
-           for d, (s, _, _, _) in enumerate(levels)]
-    dep.append(torch.full_like(zero_i, depth))
-    return TreeTables(
-        split_feature=torch.cat(sf).to(torch.int32),
-        threshold=torch.cat(th),
-        left_child=torch.cat(lc).to(torch.int32),
-        depth=torch.cat(dep).to(torch.int32),
-    )
+    Each level is one :func:`_level_core` over the concatenated frontiers
+    of the trees that still have one; a tree's frontier holds its ids
+    ``[base, base + F_t)`` and its children are allocated at the end of its
+    table in slot order, as the reference package's host builder and device
+    growth both number them. The loop reads one small vector per level back
+    from the device: how many nodes of each tree split. A tree whose
+    frontier empties leaves the loop (and its examples the level's stream);
+    past ``max_depth`` no node splits (JAX's device loop stops there; its
+    host loop runs one more level that splits nothing), and the last
+    frontier stays as leaf rows."""
+    dev = x.device
+    num_trees = len(rows)
+    num_bins = cfg.split_bins if xb is not None else 0
+    span = [len(r) for r in rows]  # the examples of a tree lie together
+    row = torch.cat(list(rows))
+    tree = torch.repeat_interleave(torch.arange(num_trees, device=dev),
+                                   torch.tensor(span, device=dev))
+    lab = labels[row]
+    node_of = torch.zeros_like(row)
+    weighted = [w is not None for w in class_weights]
+    if any(weighted):
+        w_tree = torch.stack([torch.ones(num_classes, device=dev) if w is None
+                              else w for w in class_weights])
+        weighted_tree = torch.tensor(weighted, device=dev)
+    levels: List[list] = [[] for _ in range(num_trees)]  # (sf, th, lc) slices
+    nn, f_count = [1] * num_trees, [1] * num_trees
+    live, depth = list(range(num_trees)), 0
+    while live and depth <= cfg.max_depth:
+        fs = [f_count[t] for t in live]
+        starts = np.cumsum([0] + fs[:-1])
+        f = int(sum(fs))
+        base = np.array([n - c for n, c in zip(nn, f_count)])
+        shift = np.zeros(num_trees, np.int64)
+        shift[live] = starts - base[live]
+        host = np.concatenate([
+            np.repeat(live, fs), np.repeat(starts, fs),
+            np.repeat([nn[t] for t in live], fs), shift, base,
+        ]).astype(np.int64)
+        meta = torch.from_numpy(host).to(dev)  # the level's one upload
+        slot_tree, first, table_len = meta[:f], meta[f:2 * f], meta[2 * f:3 * f]
+        shift_t, base_t = meta[3 * f:3 * f + num_trees], meta[3 * f + num_trees:]
+        seg = torch.where(node_of >= base_t[tree], node_of + shift_t[tree], f)
+
+        cw = wm = None
+        if any(weighted[t] for t in live):
+            cw = w_tree[slot_tree]
+            if not all(weighted[t] for t in live):
+                wm = weighted_tree[slot_tree]
+        layers, feats = draws(depth, list(zip(live, fs)))
+        splitting, feat, thr, left_ids, node_of = _level_core(
+            x, row, lab, node_of, seg, first, table_len, feats, layers,
+            cfg.min_split_examples, cfg.min_child_split_examples, cw, wm,
+            num_classes, xb=xb, boundaries=boundaries, num_bins=num_bins,
+        )
+        level = (torch.where(splitting, feat, 0), torch.where(splitting, thr, 0.0),
+                 torch.where(splitting, left_ids, 0))
+        splits = torch.zeros(num_trees, dtype=torch.int64, device=dev).index_add_(
+            0, slot_tree, splitting.to(torch.int64)).tolist()  # the host read
+        for t, s, ft in zip(live, starts, fs):
+            levels[t].append(tuple(a[s:s + ft] for a in level))
+            nn[t] += 2 * splits[t]
+            f_count[t] = 2 * splits[t]
+        kept = [t for t in live if f_count[t]]
+        if kept and kept != live:  # drop the done trees' examples
+            ends = np.cumsum([span[t] for t in live])
+            ranges = [(e - span[t], e) for t, e in zip(live, ends) if f_count[t]]
+            row, lab, node_of, tree = (torch.cat([a[b:e] for b, e in ranges])
+                                       for a in (row, lab, node_of, tree))
+        live = kept
+        depth += 1
+
+    out = []
+    for t in range(num_trees):
+        zero = torch.zeros(f_count[t], dtype=torch.int64, device=dev)
+        sizes = [l[0].shape[0] for l in levels[t]] + [f_count[t]]
+        dep = np.repeat(np.arange(len(sizes)), sizes)
+        out.append(TreeTables(
+            split_feature=torch.cat([l[0] for l in levels[t]] + [zero]).to(torch.int32),
+            threshold=torch.cat([l[1] for l in levels[t]] + [zero.to(torch.float32)]),
+            left_child=torch.cat([l[2] for l in levels[t]] + [zero]).to(torch.int32),
+            depth=torch.from_numpy(dep.astype(np.int32)).to(dev),
+        ))
+    return out
 
 
 def _num_features(cfg: TrainerConfig, d: int) -> int:
     return cfg.num_features or int(math.ceil(math.sqrt(d)))
 
 
-def host_draws(rng: np.random.Generator, num_layers: int, d: int, k: int,
-               device) -> LevelDraws:
-    """The host growth's numpy draws (JAX ``_grow_tree``): per level, the
-    layers, then one permutation's first ``k`` features per node."""
+def host_draws(rngs: Sequence[np.random.Generator], num_layers: int, d: int,
+               k: int, device) -> LevelDraws:
+    """The host growth's numpy draws (JAX ``_grow_tree``), each tree from its
+    own stream ``rngs[t]``: per level, the layers, then one permutation's
+    first ``k`` features per node."""
 
-    def draw(depth: int, f: int):
-        layers = rng.integers(0, num_layers, size=f)
-        feats = np.stack([rng.permutation(d)[:k] for _ in range(f)])
-        return (torch.from_numpy(layers.astype(np.int64)).to(device),
-                torch.from_numpy(feats.astype(np.int64)).to(device))
+    def draw(depth: int, live: Sequence[Tuple[int, int]]):
+        layers, feats = [], []
+        for t, f in live:
+            layers.append(rngs[t].integers(0, num_layers, size=f))
+            feats.extend(rngs[t].permutation(d)[:k] for _ in range(f))
+        return (torch.from_numpy(np.concatenate(layers).astype(np.int64)).to(device),
+                torch.from_numpy(np.stack(feats).astype(np.int64)).to(device))
 
     return draw
 
 
-def device_draws(seed: int, num_layers: int, d: int, k: int,
+def device_draws(seeds: Sequence[int], num_layers: int, d: int, k: int,
                  device) -> LevelDraws:
-    """The device growth's threefry draws (JAX ``grow_tree_device``): per
-    level ``split(fold_in(PRNGKey(seed), depth))``, layers by ``randint``
-    and features as the top ``k`` of per-slot uniforms, the level's three
-    draws in one evaluation of the hash."""
-    key = jrandom.prng_key(seed)
+    """The device growth's threefry draws (JAX ``grow_tree_device``), tree
+    ``t`` from ``PRNGKey(seeds[t])``: per level ``split(fold_in(key,
+    depth))``, layers by ``randint`` and features as the top ``k`` of
+    per-slot uniforms. The live trees' draws are one evaluation of the hash;
+    the threefry is the partitionable one, so a tree's rows do not depend
+    on the trees drawn beside it."""
+    keys = [jrandom.prng_key(s) for s in seeds]
 
-    def draw(depth: int, f: int):
-        k_lay, k_feat = jrandom.split(jrandom.fold_in(key, depth))
-        k_hi, k_lo = jrandom.split(k_lay)
-        hi, lo, bits = jrandom.random_bits_many(
-            [(k_hi, (f,)), (k_lo, (f,)), (k_feat, (f, d))], device)
-        layers = jrandom.randint_from_bits(hi, lo, 0, num_layers)
-        _, feats = jrandom.top_k(jrandom.uniform_from_bits(bits), k)
+    def draw(depth: int, live: Sequence[Tuple[int, int]]):
+        lay, feat = [], []
+        for t, f in live:
+            k_lay, k_feat = jrandom.split(jrandom.fold_in(keys[t], depth))
+            lay.append((jrandom.split(k_lay), f))
+            feat.append((k_feat, (f, d)))
+        f = sum(n for _, n in lay)
+        bits = jrandom.random_bits_flat(
+            [(k_hi, (n,)) for (k_hi, _), n in lay]
+            + [(k_lo, (n,)) for (_, k_lo), n in lay] + feat, device)
+        layers = jrandom.randint_from_bits(bits[:f], bits[f:2 * f], 0, num_layers)
+        _, feats = jrandom.top_k(
+            jrandom.uniform_from_bits(bits[2 * f:].view(f, d)), k)
         return layers.to(torch.int64), feats
 
     return draw
@@ -591,27 +719,14 @@ def grow_tree_device(
     xb: Optional[torch.Tensor] = None,  # [Ns, D] bin indices (binned mode)
     boundaries: Optional[torch.Tensor] = None,  # [D, B-1] (binned mode)
 ) -> TreeTables:
-    """One tree with the device growth's draws, exact or binned."""
+    """One tree on all of ``x``'s rows with the device growth's draws, exact
+    or binned: :func:`_grow` with one tree."""
     d = x.shape[1]
-    draws = device_draws(seed, labels.shape[1], d, _num_features(cfg, d),
+    draws = device_draws([seed], labels.shape[1], d, _num_features(cfg, d),
                          x.device)
-    return _grow(x, labels, draws, class_weights, cfg, num_classes,
-                 xb=xb, boundaries=boundaries)
-
-
-def _grow_tree(
-    x: torch.Tensor,  # [Ns, D]
-    labels: torch.Tensor,  # [Ns, L] int64
-    class_weights: Optional[torch.Tensor],  # [C], None = unweighted
-    cfg: TrainerConfig,
-    rng: np.random.Generator,
-    num_classes: int,
-) -> TreeTables:
-    """One tree with the host growth's numpy draws (exact search)."""
-    d = x.shape[1]
-    draws = host_draws(rng, labels.shape[1], d, _num_features(cfg, d),
-                       x.device)
-    return _grow(x, labels, draws, class_weights, cfg, num_classes)
+    rows = torch.arange(x.shape[0], device=x.device)
+    return _grow(x, labels, [rows], draws, [class_weights], cfg, num_classes,
+                 xb=xb, boundaries=boundaries)[0]
 
 
 def _tree_class_weights(
@@ -653,6 +768,42 @@ def _tree_seed(rng: np.random.Generator) -> int:
 # ======================================================================
 
 
+def _leaf_histograms_forest(
+    x: torch.Tensor,  # [N, D] full dataset
+    labels: torch.Tensor,  # [N, L] int64
+    freqs: torch.Tensor,  # [L, C] inverted class frequency per layer
+    trees: Sequence[TreeTables],
+    num_classes: int,
+) -> List[torch.Tensor]:  # per tree [nn_t, L, C] float32 weighted counts
+    """Descend the full dataset once through every tree (their tables one
+    after another, ``[N, T]`` nodes) to the deepest tree's own depth, count
+    examples per (tree, node, layer, class) as integers in one count, then
+    weight each count by its class frequency once (JAX adds the float32
+    weight per example: float32 rounding apart, the same numbers).
+
+    The deepest leaves sit one level below ``max_depth``, and the descent
+    reaches them: JAX's fused refit descends ``ceil(max_depth / 8) * 8``
+    levels and misses them when ``max_depth`` is a multiple of 8."""
+    dev = x.device
+    sizes = [t.num_nodes for t in trees]
+    offsets = np.cumsum([0] + sizes[:-1]).tolist()
+    sf = torch.cat([t.split_feature for t in trees]).to(torch.int64)
+    th = torch.cat([t.threshold for t in trees])
+    lc = torch.cat([torch.where(t.left_child != 0, t.left_child.to(torch.int64) + o, 0)
+                    for t, o in zip(trees, offsets)])
+    node = torch.tensor(offsets, device=dev).repeat(x.shape[0], 1)  # [N, T]
+    depth = int(torch.stack([t.depth.max() for t in trees]).max())
+    for _ in range(depth):
+        left = lc[node]
+        nxt = left + (torch.gather(x, 1, sf[node]) >= th[node]).to(torch.int64)
+        node = torch.where(left == 0, node, nxt)
+    total, num_layers, c = sum(sizes), labels.shape[1], num_classes
+    layer = torch.arange(num_layers, device=dev)
+    keys = (node[:, :, None] * num_layers + layer) * c + labels[:, None, :]
+    counts = _count(keys, total * num_layers * c).view(total, num_layers, c)
+    return list((counts.to(torch.float32) * freqs).split(sizes))
+
+
 def _leaf_histograms_all(
     x: torch.Tensor,  # [N, D] full dataset
     labels: torch.Tensor,  # [N, L] int64
@@ -660,22 +811,8 @@ def _leaf_histograms_all(
     tree: TreeTables,
     num_classes: int,
 ) -> torch.Tensor:  # [nn, L, C] float32 weighted counts
-    """Descend the full dataset once and count examples per (node, layer,
-    class) as integers, then weight each count by its class frequency once
-    (JAX adds the float32 weight per example: float32 rounding apart, the
-    same numbers)."""
-    sf = tree.split_feature.to(torch.int64)
-    lc = tree.left_child.to(torch.int64)
-    node = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
-    for _ in range(int(tree.depth.max())):
-        xv = torch.gather(x, 1, sf[node][:, None])[:, 0]
-        nxt = lc[node] + (xv >= tree.threshold[node]).to(torch.int64)
-        node = torch.where(lc[node] == 0, node, nxt)
-    nn, num_layers, c = tree.num_nodes, labels.shape[1], num_classes
-    layer = torch.arange(num_layers, device=x.device)
-    keys = (node[:, None] * num_layers + layer) * c + labels
-    counts = _count(keys, nn * num_layers * c).view(nn, num_layers, c)
-    return counts.to(torch.float32) * freqs
+    """:func:`_leaf_histograms_forest` of one tree."""
+    return _leaf_histograms_forest(x, labels, freqs, [tree], num_classes)[0]
 
 
 def _inverted_class_frequency(labels: np.ndarray, c: int) -> np.ndarray:
@@ -779,45 +916,57 @@ class ForestTrainer:
             multi_label=bool(multi_label),
         )
 
+    def grow_trees(self, data: TrainingData, tree_ids: Sequence[int],
+                   progress: bool = False) -> List[TreeArrays]:
+        """Grow trees ``tree_ids`` in one level loop and refit their leaf
+        histograms on the whole set in one descent. Tree ``t`` draws from
+        its own stream ``default_rng((seed, t))`` (its bootstrap, then its
+        threefry seed, or in host growth its numpy draws in its own order):
+        the same tree whichever trees grow beside it or before it, and on
+        whichever device."""
+        cfg = self.config
+        if not tree_ids:
+            return []
+        start = time.perf_counter()
+        n, d = data.x.shape
+        c_max = max(data.class_counts)
+        rngs, rows, weights = [], [], []
+        for t in tree_ids:
+            rng = np.random.default_rng((cfg.seed, t))
+            idx = _bootstrap(rng, cfg, n, cfg.num_bootstrap_examples or n)
+            rows.append(torch.from_numpy(idx.astype(np.int64)).to(self.device))
+            weights.append(_weights_or_none(
+                _tree_class_weights(cfg, data.labels[idx], len(idx), c_max),
+                self.device))
+            rngs.append(rng)
+        num_layers, k = data.labels.shape[1], _num_features(cfg, d)
+        if cfg.device_growth:
+            draws = device_draws([_tree_seed(r) for r in rngs], num_layers, d,
+                                 k, self.device)
+        else:
+            draws = host_draws(rngs, num_layers, d, k, self.device)
+        tables = _grow(data.x, data.labels_dev, rows, draws, weights, cfg, c_max,
+                       xb=data.bins, boundaries=data.boundaries)
+        raws = _leaf_histograms_forest(data.x, data.labels_dev, data.freqs,
+                                       tables, c_max)
+        trees = []
+        for t, tab, raw in zip(tree_ids, tables, raws):
+            sf, th, lc, dep = tab.numpy()
+            trees.append(TreeArrays(
+                split_feature=sf, threshold=th, left_child=lc,
+                leaf_hist=_smooth_histograms(
+                    raw.cpu().numpy(), lc, data.class_counts, cfg.smoothing),
+            ))
+            if progress:
+                log.info("Finished tree %d/%d: %d nodes, depth %d (%d grown "
+                         "together, %.1fs)", t + 1, cfg.num_trees, len(sf),
+                         int(dep.max()), len(tables), time.perf_counter() - start)
+        return trees
+
     def grow_tree(self, data: TrainingData, t: int,
                   progress: bool = False) -> TreeArrays:
-        """Grow tree ``t`` from its own stream ``default_rng((seed, t))`` and
-        refit its leaf histograms on the whole set: the same tree whichever
-        trees were grown before it, and on whichever device."""
-        cfg = self.config
-        start = time.perf_counter()
-        n = data.x.shape[0]
-        c_max = max(data.class_counts)
-        rng = np.random.default_rng((cfg.seed, t))
-        idx = _bootstrap(rng, cfg, n, cfg.num_bootstrap_examples or n)
-        idx_dev = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-        cw = _weights_or_none(
-            _tree_class_weights(cfg, data.labels[idx], len(idx), c_max),
-            self.device)
-        xb, yb = data.x[idx_dev], data.labels_dev[idx_dev]
-        if cfg.device_growth:
-            tables = grow_tree_device(
-                xb, yb, _tree_seed(rng), cw, cfg, c_max,
-                xb=None if data.bins is None else data.bins[idx_dev],
-                boundaries=data.boundaries,
-            )
-        else:
-            tables = _grow_tree(xb, yb, cw, cfg, rng, c_max)
-        raw = _leaf_histograms_all(data.x, data.labels_dev, data.freqs, tables,
-                                   c_max)
-        sf, th, lc, _ = tables.numpy()
-        tree = TreeArrays(
-            split_feature=sf, threshold=th, left_child=lc,
-            leaf_hist=_smooth_histograms(
-                raw.cpu().numpy(), lc, data.class_counts, cfg.smoothing),
-        )
-        if progress:
-            log.info(
-                "Finished tree %d/%d: %d nodes, depth %d, %.1fs",
-                t + 1, cfg.num_trees, tables.num_nodes,
-                int(tables.depth.max()), time.perf_counter() - start,
-            )
-        return tree
+        """Tree ``t`` alone: :meth:`grow_trees` of ``[t]``."""
+        return self.grow_trees(data, [t], progress)[0]
 
     def learn(
         self,
@@ -828,8 +977,10 @@ class ForestTrainer:
         progress: bool = True,
         checkpoint_path: Optional[str] = None,
     ) -> Forest:
-        """Train the forest; with ``checkpoint_path``, save after each tree
-        and resume from a partial checkpoint."""
+        """Train the forest. Every tree grows in one level loop
+        (:meth:`grow_trees`), as JAX's fused forest does; with
+        ``checkpoint_path``, one tree after another, and the checkpoint is
+        saved after each tree and resumed from."""
         cfg = self.config
         data = self.prepare(features, labels, class_counts, multi_label)
         class_counts, multi_label = data.class_counts, data.multi_label
@@ -847,7 +998,9 @@ class ForestTrainer:
                     log.info("Resuming training at tree %d/%d",
                              start_tree + 1, cfg.num_trees)
 
-        for t in range(start_tree, cfg.num_trees):
+        if checkpoint_path is None:
+            trees = self.grow_trees(data, range(cfg.num_trees), progress)
+        for t in range(len(trees), cfg.num_trees):
             trees.append(self.grow_tree(data, t, progress))
             if checkpoint_path is not None:
                 from ..utils.checkpoint import TrainingCheckpoint

@@ -70,11 +70,12 @@ def random_bits(key: Key, shape: Sequence[int], device) -> torch.Tensor:
     return random_bits_many([(key, shape)], device)[0]
 
 
-def random_bits_many(draws: Sequence[Tuple[Key, Sequence[int]]],
-                     device) -> List[torch.Tensor]:
-    """:func:`random_bits` of several (key, shape) draws in one evaluation of
-    the hash (one set of ~140 elementwise launches instead of one per draw):
-    each element carries its draw's key words and its flat index."""
+def random_bits_flat(draws: Sequence[Tuple[Key, Sequence[int]]],
+                     device) -> torch.Tensor:
+    """The bits of several (key, shape) draws, flattened one after another,
+    in one evaluation of the hash (one set of ~140 elementwise launches
+    instead of one per draw): each element carries its draw's key words and
+    its flat index."""
     sizes = [math.prod(shape) for _, shape in draws]
     k0 = torch.cat([torch.full((n,), key[0], dtype=torch.int64, device=device)
                     for (key, _), n in zip(draws, sizes)])
@@ -83,7 +84,15 @@ def random_bits_many(draws: Sequence[Tuple[Key, Sequence[int]]],
     idx = torch.cat([torch.arange(n, dtype=torch.int64, device=device)
                      for n in sizes])
     b0, b1 = threefry2x32((k0, k1), idx >> 32, idx & _M32)
-    bits = (b0 ^ b1).split(sizes)
+    return b0 ^ b1
+
+
+def random_bits_many(draws: Sequence[Tuple[Key, Sequence[int]]],
+                     device) -> List[torch.Tensor]:
+    """:func:`random_bits` of several (key, shape) draws in one evaluation of
+    the hash (:func:`random_bits_flat`)."""
+    sizes = [math.prod(shape) for _, shape in draws]
+    bits = random_bits_flat(draws, device).split(sizes)
     return [b.reshape(tuple(shape)) for b, (_, shape) in zip(bits, draws)]
 
 

@@ -42,9 +42,11 @@ from rovinasemanticsegmentation_tpu_torch.models.crf2d_device import (
     dense2d_map_from_labels_device,
 )
 from rovinasemanticsegmentation_tpu_torch.pipelines import local_map as tlm
+from rovinasemanticsegmentation_tpu_torch.scripts.bench_dense_inference import (
+    make_demo_pair,
+)
 
 import test_crf_learning
-from chip_smoke import make_demo_pair
 
 torch.set_num_threads(2)
 

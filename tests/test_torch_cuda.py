@@ -503,6 +503,36 @@ def test_trainer_on_card_equals_cpu(dev, mode):
                                        atol=2.4e-7)
 
 
+@pytest.mark.parametrize("mode", [{}, {"split_bins": 64},
+                                  {"use_class_frequency": True,
+                                   "num_bootstrap_examples": 40}])
+def test_fused_forest_on_card_equals_tree_loop(dev, mode):
+    """On the card too, ``learn``'s one level loop grows each tree as the
+    tree loop does, bit for bit; with class-frequency weights on 40-row
+    bootstraps some trees come out unweighted, and on the card the two
+    entropy forms round differently."""
+    from rovinasemanticsegmentation_tpu_torch.models.forest import build_forest
+    from rovinasemanticsegmentation_tpu_torch.train.forest_trainer import (
+        ForestTrainer,
+        TrainerConfig,
+    )
+
+    x, y = _training_data(seed=5)
+    counts = [4, 2]
+    if mode.get("use_class_frequency"):
+        y, counts = np.where(np.arange(len(y))[:, None] % 50 == 0, y[:, :1], 0), [4]
+    cfg = TrainerConfig(num_trees=6, max_depth=12, min_split_examples=4,
+                        seed=6, **mode)
+    trainer = ForestTrainer(cfg, dev)
+    fused = trainer.learn(torch.from_numpy(x).to(dev), y, class_counts=counts,
+                          progress=False)
+    data = trainer.prepare(torch.from_numpy(x).to(dev), y, class_counts=counts)
+    loop = build_forest([trainer.grow_tree(data, t) for t in range(6)], counts,
+                        multi_label=data.multi_label)
+    for f in ("split_feature", "threshold", "left_child", "leaf_hist"):
+        np.testing.assert_array_equal(getattr(fused, f), getattr(loop, f))
+
+
 def test_trainer_on_card_same_on_every_run(dev):
     from rovinasemanticsegmentation_tpu_torch.train.forest_trainer import (
         ForestTrainer,

@@ -207,6 +207,7 @@ def test_port_imports_without_jax():
         "utils.config", "utils.calibration", "utils.labels", "utils.imageio",
         "utils.metrics", "features.dataset", "serve.camera", "native",
         "ops.feature_rows", "bench", "scripts.bench_train", "utils.roofline",
+        "scripts.bench_dense_inference", "scripts.profile_train",
     )} <= names
 
 
