@@ -155,7 +155,20 @@ or ALU) over that pipe's rate.
    with ``correct: true`` and the ``gpu`` platform, and kernels A, its
    ``pack_lab`` and B must have launched in each cell's timed epochs (their
    sum over the cells is each kernel's ``launches_bench`` entry); its
-   keyframes/s and traced numbers are printed.
+   keyframes/s and traced numbers are printed;
+16. the stage profilers of the main path (``scripts/exp_lattice.py``,
+   ``exp_filter.py``, ``profile_normals.py``, ``profile_map.py``,
+   ``profile_slope.py``) at full size, side by side, each in a process of
+   its own with one repeat of its wall slopes (their times are not
+   readings): each must exit 0 with a
+   summary line whose own checks hold (each stage chain against its
+   production call: lattice tables bit-equal, the filter within rtol 2e-4 /
+   atol 2e-5, normals' masks equal and angles within 2.4e-7 rad, map and
+   frame labels equal; the vertex count within its bucket), on the card,
+   with device activities in every timed stage; kernels A, ``pack_lab`` and
+   B must have launched in ``profile_slope``'s process (their counts there
+   are the ``launches_stage_profilers`` entries). Each stage's wall ms,
+   device ms, activities and idle share are printed.
 
 The last lines are the card's name and power limit, one JSON object of
 per-kernel results (``launches``: the serving run of phase 4 for A and B,
@@ -1337,6 +1350,10 @@ def run(card: str) -> dict:
     for name, k in bench_phase(card).items():
         results[name]["launches_bench"] = k
 
+    # ---- phase 16: the stage profilers of the main path
+    for name, k in stage_profilers_phase(card).items():
+        results[name]["launches_stage_profilers"] = k
+
     # No single PyTorch call computes any of these functions, so no library
     # call is timed beside them.
     return {
@@ -1911,6 +1928,88 @@ def bench_phase(card: str) -> dict:
               f"{cell['maps_attempted']} maps ({card})")
     print(f"phase 15: the bench passed its checks in "
           f"{time.perf_counter() - t0:.3f} s; launches {launches}")
+    return launches
+
+
+STAGE_PROFILERS = ("exp_lattice", "exp_filter", "profile_normals",
+                   "profile_map", "profile_slope")
+
+
+def stage_profilers_phase(card: str) -> dict:
+    """Phase 16: each stage profiler at full size in a process of its own,
+    one repeat of each wall slope; -> the launches of A, ``pack_lab`` and B
+    in ``profile_slope``. The five processes run side by side to keep the
+    phase short, so their times are not readings: ``PERF.md``'s come from
+    each script run alone."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        try:
+            for script in STAGE_PROFILERS:
+                out = open(os.path.join(tmp, f"{script}.out"), "w")
+                err = open(os.path.join(tmp, f"{script}.err"), "w")
+                with out, err:
+                    procs[script] = subprocess.Popen(
+                        [sys.executable, "-m", "rovinasemanticsegmentation_"
+                         f"tpu_torch.scripts.{script}", "--reps", "1"],
+                        cwd=ROOT, stdout=out, stderr=err, text=True)
+            seconds = {}
+            while len(seconds) < len(procs):
+                check(time.perf_counter() - t_phase < 300,
+                      f"stage profilers still running after 300 s: "
+                      f"{sorted(set(procs) - set(seconds))}")
+                for script, proc in procs.items():
+                    if script not in seconds and proc.poll() is not None:
+                        seconds[script] = time.perf_counter() - t_phase
+                time.sleep(0.1)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        outputs = {}
+        for script, proc in procs.items():
+            with open(os.path.join(tmp, f"{script}.out")) as f:
+                stdout = f.read()
+            with open(os.path.join(tmp, f"{script}.err")) as f:
+                stderr = f.read()
+            check(proc.returncode == 0, f"{script} exited {proc.returncode}: "
+                  f"{stdout[-2000:]} {stderr[-3000:]}")
+            outputs[script] = stdout
+    launches = {}
+    for script in STAGE_PROFILERS:
+        lines = [json.loads(line) for line in outputs[script].splitlines()
+                 if line.startswith("{")]
+        summary = lines[-1] if lines else {}
+        check(summary.get("summary") is True and summary.get("ok") is True,
+              f"{script}: summary {summary}")
+        check(summary["device"] == "cuda", f"{script} ran on {summary['device']}")
+        if "m" in summary:
+            check(summary["m"] <= summary["bucket"], f"{script}: "
+                  f"{summary['m']} vertices overflow {summary['bucket']}")
+        check([line["stage"] for line in lines[:-1]] == summary["stages"],
+              f"{script}: stage lines {lines[:-1]}")
+        for line in lines[:-1]:
+            if line.get("fused_into") is not None:
+                continue
+            check(line["activities"] > 0,
+                  f"{script}: stage {line['stage']} ran no device activity")
+            top = ", ".join(f"{op['name'][:40]} {op['count']:.1f}x "
+                            f"{op['ms']:.3f} ms" for op in line["top_ops"][:3])
+            print(f"phase 16: {script}: {line['stage']}: wall "
+                  f"{line['wall_ms']:.4f} ms, device {line['device_ms']:.4f} "
+                  f"ms in {line['activities']:.1f} activities per "
+                  f"{line['unit']}, idle {line['idle_share']:.1%}; top {top}")
+        print(f"phase 16: {script} passed its checks "
+              f"{sorted(summary['checks'])}; ended after "
+              f"{seconds[script]:.1f} s")
+        if script == "profile_slope":
+            launches = summary["launches"]
+            for kernel, n in launches.items():
+                check(n > 0, f"profile_slope: kernel {kernel} was not launched")
+    print(f"phase 16: the stage profilers passed in "
+          f"{time.perf_counter() - t_phase:.3f} s, side by side on the card "
+          f"(their times are not readings); launches {launches} ({card})")
     return launches
 
 

@@ -200,16 +200,22 @@ def extract_feature_rows(
             padded, depth_grid, config.patch_size, config.patch_size_reduce, s,
             rows, row0,
         )
-    tail = tail_view(block, layout)
     parts = _tail_features(depth_f, depth_m, intrinsic_inverse, rotation,
                            translation, config, s)
+    _write_tail(block, layout, parts, mask)
+    return mask
+
+
+def _write_tail(block: torch.Tensor, layout: RowLayout, parts, mask) -> None:
+    """The float32 tail of a frame's rows: ``parts`` where ``mask``, zero
+    elsewhere and past them."""
+    tail = tail_view(block, layout)
     k = len(parts)
     if k:
         values = torch.cat(parts, dim=1)  # [P, k], k <= 3
         tail[:, :k] = torch.where(mask[:, None], values,
                                   torch.zeros((), device=values.device))
     tail[:, k:] = 0
-    return mask
 
 
 class FeatureExtractor:

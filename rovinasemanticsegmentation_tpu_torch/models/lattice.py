@@ -455,16 +455,29 @@ def _blur_neighbors_sort(uq, ucoord, m, m_bucket: int, d: int):
     row lies inside its own run (cummax of run starts). A payload sort
     routes the results back. The -1 direction inverts the +1 map
     (n1_j(u) = v <=> n2_j(v) = u; collision-free), misses to a cut-off
-    trailing slot.
+    trailing slot. The four steps are separate functions so that each can
+    be timed alone (``scripts/exp_filter.py``).
     """
-    d1 = d + 1
+    keys, spay = _neighbor_merge_sort(uq, ucoord, m_bucket, d)
+    result = _neighbor_match(keys, spay, m, m_bucket)
+    back = _neighbor_route_back(spay, result)
+    return _neighbor_tables(back, m, m_bucket, d)
+
+
+def _neighbor_merge_sort(uq, ucoord, m_bucket: int, d: int):
+    """The unique keys and every +1 query concatenated, and the payloads in
+    their merged order: -> (keys, spay)."""
     dev = uq[0].device
-    real = torch.arange(m_bucket, device=dev) < m
     queries = _blur_neighbor_queries(ucoord, d)
     keys = [torch.cat([uq[i]] + [q[i] for q in queries]) for i in range(len(uq))]
-    t_rows = keys[0].shape[0]
-    payload = torch.arange(t_rows, device=dev)  # slot + set * m_bucket
-    spay = _lexsort(keys + [payload])  # == payload[order]
+    payload = torch.arange(keys[0].shape[0], device=dev)  # slot + set * m_bucket
+    return keys, _lexsort(keys + [payload])  # spay == payload[order]
+
+
+def _neighbor_match(keys, spay, m, m_bucket: int):
+    """Each merged row's matching unique slot, ``m_bucket`` where none."""
+    t_rows = spay.shape[0]
+    dev = spay.device
     iota = torch.arange(t_rows, device=dev)
     is_u = spay < m_bucket
     run_start = torch.zeros(t_rows, dtype=torch.bool, device=dev)
@@ -476,8 +489,19 @@ def _blur_neighbors_sort(uq, ucoord, m, m_bucket: int, d: int):
     u_idx = torch.cummax(torch.where(is_u, iota, -1), dim=0).values
     u_slot = torch.cummax(torch.where(is_u, spay, -1), dim=0).values
     match = (u_idx >= rs_idx) & (u_slot >= 0) & (u_slot < m)
-    result = torch.where(match, u_slot, m_bucket)
-    back = result[torch.argsort(spay)]
+    return torch.where(match, u_slot, m_bucket)
+
+
+def _neighbor_route_back(spay, result):
+    """The merged rows' results back in payload (set, slot) order."""
+    return result[torch.argsort(spay)]
+
+
+def _neighbor_tables(back, m, m_bucket: int, d: int):
+    """``blur_n1`` from the routed results, ``blur_n2`` by inverting it."""
+    d1 = d + 1
+    dev = back.device
+    real = torch.arange(m_bucket, device=dev) < m
     blur_n1 = torch.where(real, back[m_bucket:].reshape(d1, m_bucket), m_bucket)
 
     src = torch.arange(m_bucket, device=dev).repeat(d1)

@@ -188,14 +188,26 @@ def normal_angles_grid(
 
 def _normal_angles(points, stride: Optional[int], max_depth_change_factor,
                    normal_smoothing_size) -> torch.Tensor:
-    dev = points.device
-    h, w = points.shape[0], points.shape[1]
     z = points[..., 2]
+    change = _depth_change_map(z, max_depth_change_factor)
+    # Integral sizes take the saturated chamfer (its border agrees with the
+    # consumer's int(size) frame); other sizes the exact full-height scan.
+    integral_size = float(normal_smoothing_size) == int(normal_smoothing_size)
+    distance = chamfer_distance_map(
+        change, saturation=normal_smoothing_size if integral_size else None)
+    integ = _gradient_integral(points)
+    return _box_normals(integ, distance, torch.isnan(z), stride,
+                        normal_smoothing_size)
+
+
+def _depth_change_map(z: torch.Tensor, max_depth_change_factor) -> torch.Tensor:
+    """[H, W] bool: pixels of a right or lower neighbour pair inside the
+    image whose depth jumps, or where either depth is missing."""
+    dev = z.device
+    h, w = z.shape
     invalid = torch.isnan(z)
     ys_full = torch.arange(h, device=dev)[:, None]
     xs_full = torch.arange(w, device=dev)[None, :]
-
-    # Depth-change map: pairs (x, x+1) and (y, y+1) inside the image.
     thresh = max_depth_change_factor * (torch.abs(z) + 1.0) * 2.0
     z_r = _shift_nan(z, 0, -1)
     z_d = _shift_nan(z, -1, 0)
@@ -205,20 +217,17 @@ def _normal_angles(points, stride: Optional[int], max_depth_change_factor,
     change_y = (ys_full < h - 1) & (
         invalid | torch.isnan(z_d) | (torch.abs(z - z_d) > thresh)
     )
-    change = (
+    return (
         change_x
         | change_y
         | torch.roll(change_x, 1, dims=1)
         | torch.roll(change_y, 1, dims=0)
     )
-    # Integral sizes take the saturated chamfer (its border agrees with the
-    # consumer's int(size) frame); other sizes the exact full-height scan.
-    integral_size = float(normal_smoothing_size) == int(normal_smoothing_size)
-    distance = chamfer_distance_map(
-        change, saturation=normal_smoothing_size if integral_size else None)
 
-    # Channel-leading [8, H, W] float64: grad_x (3), grad_y (3), valid_x,
-    # valid_y, and its zero-padded integral image [8, H+1, W+1].
+
+def _gradient_integral(points: torch.Tensor) -> torch.Tensor:
+    """The zero-padded float64 integral image [8, H+1, W+1] of the
+    channel-leading stack grad_x (3), grad_y (3), valid_x, valid_y."""
     pts_t = points.permute(2, 0, 1).double()
     gx_t = _shift_nan(pts_t, 0, -1) - _shift_nan(pts_t, 0, 1)
     gy_t = _shift_nan(pts_t, -1, 0) - _shift_nan(pts_t, 1, 0)
@@ -232,7 +241,18 @@ def _normal_angles(points, stride: Optional[int], max_depth_change_factor,
         dim=0,
     )
     integ = torch.cumsum(torch.cumsum(stack, dim=1), dim=2)
-    integ = torch.nn.functional.pad(integ, (1, 0, 1, 0))
+    return torch.nn.functional.pad(integ, (1, 0, 1, 0))
+
+
+def _box_normals(integ, distance, invalid, stride: Optional[int],
+                 normal_smoothing_size) -> torch.Tensor:
+    """Box sums of the integral image over each pixel's smoothing window
+    (at the stride-grid samples, or everywhere with ``stride=None``), their
+    cross product, and the angle, -2 where invalid."""
+    dev = integ.device
+    h, w = distance.shape
+    ys_full = torch.arange(h, device=dev)[:, None]
+    xs_full = torch.arange(w, device=dev)[None, :]
     border = int(normal_smoothing_size)
 
     if stride is not None:

@@ -1,8 +1,19 @@
-"""Kernel-experiment entry points: each compares a kernel variant with its
-baseline and plain version, and times them on the card.
+"""Entry points that measure the port on the card.
+
+Kernel experiments, each comparing a kernel variant with its baseline and
+plain version:
 
     python -m rovinasemanticsegmentation_tpu_torch.scripts.exp_descent parity|bench
     python -m rovinasemanticsegmentation_tpu_torch.scripts.exp_patches parity|bench
+
+Stage profilers of the main path, splitting its wall time, device time and
+launches by stage (``stage_timing`` holds their common code):
+
+    python -m rovinasemanticsegmentation_tpu_torch.scripts.profile_slope [--batch 10]
+    python -m rovinasemanticsegmentation_tpu_torch.scripts.profile_normals
+    python -m rovinasemanticsegmentation_tpu_torch.scripts.profile_map
+    python -m rovinasemanticsegmentation_tpu_torch.scripts.exp_lattice
+    python -m rovinasemanticsegmentation_tpu_torch.scripts.exp_filter
 """
 
 from __future__ import annotations

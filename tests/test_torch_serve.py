@@ -208,6 +208,9 @@ def test_port_imports_without_jax():
         "utils.metrics", "features.dataset", "serve.camera", "native",
         "ops.feature_rows", "bench", "scripts.bench_train", "utils.roofline",
         "scripts.bench_dense_inference", "scripts.profile_train",
+        "scripts.stage_timing", "scripts.profile_slope",
+        "scripts.profile_normals", "scripts.profile_map",
+        "scripts.exp_lattice", "scripts.exp_filter",
     )} <= names
 
 
