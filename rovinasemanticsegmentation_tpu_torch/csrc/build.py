@@ -156,24 +156,3 @@ def check_launch(name: str, err: int) -> None:
     if err != 0:
         msg = load_kernels().rovina_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
-
-
-class LaunchCounter:
-    """Counts kernel launches, so a run can show its path went through them."""
-
-    def __init__(self) -> None:
-        self._n = 0
-        self._lock = threading.Lock()
-
-    def add(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-    @property
-    def value(self) -> int:
-        with self._lock:
-            return self._n

@@ -37,6 +37,7 @@ from ..ops.patches import reflect_pad_image
 from ..ops.patches_cuda import extract_patches, extract_patches_into
 from ..utils.calibration import Calibration
 from ..utils.config import Config
+from ..utils.profiling import span
 
 
 class ExtractType(enum.Enum):
@@ -195,13 +196,16 @@ def extract_feature_rows(
     mask = mask2d.reshape(-1)
     block = rows[row0 : row0 + mask.shape[0]]
     if config.use_color_patch:
-        padded, depth_grid = patch_inputs(rgb, depth_mm, config, s)
-        extract_patches_into(
-            padded, depth_grid, config.patch_size, config.patch_size_reduce, s,
-            rows, row0,
-        )
-    parts = _tail_features(depth_f, depth_m, intrinsic_inverse, rotation,
-                           translation, config, s)
+        with span("frame.lab_pad"):
+            padded, depth_grid = patch_inputs(rgb, depth_mm, config, s)
+        with span("frame.patches"):
+            extract_patches_into(
+                padded, depth_grid, config.patch_size,
+                config.patch_size_reduce, s, rows, row0,
+            )
+    with span("frame.normals"):
+        parts = _tail_features(depth_f, depth_m, intrinsic_inverse, rotation,
+                               translation, config, s)
     _write_tail(block, layout, parts, mask)
     return mask
 

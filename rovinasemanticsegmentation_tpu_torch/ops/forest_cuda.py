@@ -20,7 +20,6 @@ import torch
 
 from ..csrc.build import (
     MAX_SHARED_BYTES,
-    LaunchCounter,
     check_launch,
     load_kernels,
 )
@@ -29,9 +28,10 @@ from ..models.forest import (
     find_leaves_plain,
     sum_leaf_histograms_plain,
 )
+from ..utils.profiling import counter
 from .feature_rows import RowLayout, check_rows, unpack_rows
 
-launches = LaunchCounter()
+launches = counter("forest_cuda.launches")
 
 TILE_POINTS = 64  # points per tile: 24.6 KB of 384-byte rows per stage
 _MAX_THREADS = 1024  # one thread per (point, tree) in a block

@@ -25,15 +25,15 @@ import torch
 
 from ..csrc.build import (
     MAX_SHARED_BYTES,
-    LaunchCounter,
     check_launch,
     load_kernels,
 )
 from ..models.forest import TorchForest, find_leaves_plain
+from ..utils.profiling import counter
 from .feature_rows import RowLayout, check_rows, unpack_rows
 from .forest_cuda import check_features
 
-launches = LaunchCounter()
+launches = counter("forest_staged_cuda.launches")
 
 TILE_POINTS = 64  # points per tile
 _MAX_THREADS = 1024

@@ -24,7 +24,8 @@ from typing import Callable, Tuple
 
 import torch
 
-from ..csrc.build import LaunchCounter, check_launch, load_kernels
+from ..csrc.build import check_launch, load_kernels
+from ..utils.profiling import counter
 from .patches import (
     check_patch_inputs,
     check_rows_out,
@@ -33,8 +34,8 @@ from .patches import (
     write_patch_rows,
 )
 
-launches = LaunchCounter()
-pack_launches = LaunchCounter()
+launches = counter("patches_cuda.launches")
+pack_launches = counter("patches_cuda.pack_launches")
 
 
 def pack_lab_plain(padded_lab: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,6 @@ import torch
 
 from ..csrc.build import (
     MAX_SHARED_BYTES,
-    LaunchCounter,
     check_launch,
     load_kernels,
 )
@@ -36,9 +35,10 @@ from .patches import (
     extract_patches_separable_into_plain,
     tap_tensors,
 )
+from ..utils.profiling import counter
 from .patches_cuda import pack_lab
 
-launches = LaunchCounter()
+launches = counter("patches_separable_cuda.launches")
 
 TILE_ROWS, TILE_COLS = 4, 8  # grid points per block (csrc TY, TX)
 # Shared memory for a block's image footprint: hmax <= 33 at stride 2

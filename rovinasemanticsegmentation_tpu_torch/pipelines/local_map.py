@@ -38,6 +38,7 @@ from ..models.lattice import (
     lattice_tensors,
     pad_lattice,
 )
+from ..utils.profiling import span
 
 
 @dataclass
@@ -291,11 +292,13 @@ class LocalMapPipeline:
         per-layer int32 labels and the device build's vertex count (None for
         the host build), both left on the device without a synchronisation.
         """
-        fused = torch.cat(self.fuse_unaries(points, nodes), dim=1)
+        with span("map.fusion"):
+            fused = torch.cat(self.fuse_unaries(points, nodes), dim=1)
         feats = crf_feats(points, cloud_rgb, self.crf.xyz_kernel,
                           self.crf.rgb_kernel)
         if self.use_device_lattice:
-            *lattice, m = build_lattice_device(feats, m_bucket)
+            with span("map.lattice_build"):
+                *lattice, m = build_lattice_device(feats, m_bucket)
             num_vertices, overflow = m_bucket, m > m_bucket
         else:
             host = attach_sorted_stream(
@@ -303,10 +306,12 @@ class LocalMapPipeline:
             )
             lattice = lattice_tensors(host, self.device)
             num_vertices, m, overflow = host.num_vertices, None, None
-        labels = crf_labels_multi(
-            fused, lattice, self.crf.kernel_weight, self.class_counts,
-            num_vertices, self.crf.iterations, self.unknown_labels, overflow,
-        )
+        with span("map.mean_field"):
+            labels = crf_labels_multi(
+                fused, lattice, self.crf.kernel_weight, self.class_counts,
+                num_vertices, self.crf.iterations, self.unknown_labels,
+                overflow,
+            )
         return labels, m
 
     def label_map_sharded(
@@ -423,13 +428,16 @@ class LocalMapPipeline:
         dev = self.device
         points = torch.as_tensor(cloud_points, dtype=torch.float32, device=dev)
         if not self.crf.use_dense_crf:
-            return self.label_map(self.fuse_unaries(points, nodes))
+            with span("map.fusion"):
+                unaries = self.fuse_unaries(points, nodes)
+            return self.label_map(unaries)
         if cloud_rgb is None:
             raise ValueError("dense CRF smoothing needs cloud RGB")
         rgb = torch.as_tensor(cloud_rgb, dtype=torch.float32, device=dev)
         if self.mesh is not None:
-            return self.label_map_sharded(
-                points, rgb, self.fuse_unaries(points, nodes))
+            with span("map.fusion"):
+                unaries = self.fuse_unaries(points, nodes)
+            return self.label_map_sharded(points, rgb, unaries)
         labels, m = self.map_fused(points, rgb, nodes, self._m_bucket)
         if not self.use_device_lattice:
             return labels
@@ -446,7 +454,6 @@ class LocalMapPipeline:
         self, cloud_points, cloud_rgb, nodes: Sequence[MapNodeFrames]
     ) -> List[np.ndarray]:
         """Fusion, smoothing and labels for one map, as per-layer uint8 arrays."""
-        return [
-            lbl.cpu().numpy().astype(np.uint8)
-            for lbl in self.run_device(cloud_points, cloud_rgb, nodes)
-        ]
+        labels = self.run_device(cloud_points, cloud_rgb, nodes)
+        with span("map.to_host"):
+            return [lbl.cpu().numpy().astype(np.uint8) for lbl in labels]

@@ -39,6 +39,7 @@ from ..models.forest import TorchForest, forest_from_numpy
 from ..ops.forest_cuda import forest_predict_rows
 from ..ops.resize import resize_bilinear
 from ..utils.calibration import Calibration
+from ..utils.profiling import span
 
 ARGMAX_FLOOR = -1000.0  # test_multi.cpp:181,207
 
@@ -134,7 +135,8 @@ class SingleFramePipeline:
     ) -> List[SingleFrameResult]:
         post, masks = self.stacked_posteriors(
             rgb_stack, depth_stack, kinv_stack, rot_stack, trans_stack)
-        return self.results(post, masks, tuple(depth_stack.shape[1:]))
+        with span("frame.results"):
+            return self.results(post, masks, tuple(depth_stack.shape[1:]))
 
     def stacked_posteriors(
         self, rgb_stack, depth_stack, kinv_stack, rot_stack, trans_stack,
@@ -164,7 +166,8 @@ class SingleFramePipeline:
             )
             for i in range(b)
         ]
-        _, post = forest_predict_rows(rows, layout, self.forest)
+        with span("frame.descent"):
+            _, post = forest_predict_rows(rows, layout, self.forest)
         return post, masks
 
     def grid_shape(self, h: int, w: int) -> Tuple[int, int]:

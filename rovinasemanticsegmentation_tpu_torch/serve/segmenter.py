@@ -47,6 +47,7 @@ from ..utils.labels import (
     LayerCoding,
     parse_color_codings,
 )
+from ..utils.profiling import span
 from .camera import CameraBuffer, parse_name_from_topic
 
 log = logging.getLogger(__name__)
@@ -148,9 +149,12 @@ class Segmenter:
         self._cloud_lock = threading.Lock()
         self._cloud_processing_lock = threading.Lock()
         self._cameras_in_order: List[CameraBuffer] = []
-        self._image_queues: List[Deque[Tuple[int, np.ndarray, np.ndarray]]] = []
+        # Queued items carry their tracer spans (no-ops with tracing off):
+        # (seq, depth, rgb, keyframe span, queue span) per camera, and
+        # (map, map span, queue span).
+        self._image_queues: List[Deque[tuple]] = []
         self._result_queues: List[Deque[Tuple[int, list]]] = []
-        self._local_map_queue: Deque[LocalMapData] = deque()
+        self._local_map_queue: Deque[tuple] = deque()
         self._cloud_results: List[Tuple[int, List[np.ndarray]]] = []
         self._last_pose = np.eye(4, dtype=np.float32)
         self._last_pose[:3, 3] = 10.0  # far away: first frame always passes
@@ -254,7 +258,14 @@ class Segmenter:
         calibrations: Optional[Sequence[Calibration]] = None,
         image_size: Optional[Tuple[int, int]] = None,
     ) -> bool:
-        """Handle a keyframe; returns True if it was queued for inference."""
+        """Handle a keyframe; returns True if it was queued for inference.
+
+        With tracing on, the node's ``runtime.keyframe`` span runs from here
+        to its posteriors appended to the result queue (every camera's), and
+        each camera's frame waits in the image queue under a
+        ``runtime.frame_queue`` span."""
+        keyframe = span("runtime.keyframe", request=node.node_id,
+                        parts=len(node.subimage_seqs))
         if node.node_id <= self._last_key_frame_id and self._last_key_frame_id:
             return False  # filter old messages (:250)
         self._last_key_frame_id = node.node_id
@@ -287,8 +298,11 @@ class Segmenter:
                 (color_seq, rgb), (depth_seq, depth) = got
                 # Depth must match; color may trail by < 3 (:278-287).
                 if depth_seq == seq and depth_seq - color_seq < 3:
-                    self._image_queues[i].append((depth_seq, depth, rgb))
+                    self._image_queues[i].append(
+                        (depth_seq, depth, rgb, keyframe,
+                         span("runtime.frame_queue", parent=keyframe)))
                 else:
+                    keyframe.end()  # this camera's part of the keyframe
                     log.error(
                         "Dropped a frame for camera %d! Semantics won't be "
                         "computed for depth seq: %d", i, seq,
@@ -296,8 +310,13 @@ class Segmenter:
         return True
 
     def on_new_local_map(self, lmap: LocalMapData) -> None:
+        """Queue a map. With tracing on, its ``runtime.map`` span runs from
+        here to its labels stored, and its wait in the queue for the map
+        worker and its frames is a ``runtime.map_queue`` span."""
+        root = span("runtime.map", request=lmap.map_id)
         with self._cloud_processing_lock:
-            self._local_map_queue.append(lmap)
+            self._local_map_queue.append(
+                (lmap, root, span("runtime.map_queue", parent=root)))
 
     # ------------------------------------------------------------------
     # Worker A: per-frame inference (segmenter.cpp:323-514)
@@ -324,21 +343,27 @@ class Segmenter:
                     self._image_queues[i].popleft() for _ in range(batch)
                 ]
                 calib = cam.calibration
+            for p in popped:
+                p[4].end()  # runtime.frame_queue
             seqs = [p[0] for p in popped]
-            if self._external is not None:
-                (_, depth, rgb) = popped[0]
-                posteriors = [self._external_frame(rgb, depth, calib)]
-            else:
-                results = self._frame_pipeline.run_batch(
-                    [p[2] for p in popped],
-                    [p[1] for p in popped],
-                    [calib] * batch,
-                )
-                # Posteriors stay on the device: fusion consumes them there.
-                posteriors = [list(r.posteriors) for r in results]
+            nodes = [p[3].request for p in popped]
+            with span("runtime.frame_batch", request=nodes):
+                if self._external is not None:
+                    (_, depth, rgb) = popped[0][:3]
+                    posteriors = [self._external_frame(rgb, depth, calib)]
+                else:
+                    results = self._frame_pipeline.run_batch(
+                        [p[2] for p in popped],
+                        [p[1] for p in popped],
+                        [calib] * batch,
+                    )
+                    # Posteriors stay on the device: fusion consumes them there.
+                    posteriors = [list(r.posteriors) for r in results]
             with self._frame_lock:
                 for seq, post in zip(seqs, posteriors):
                     self._result_queues[i].append((seq, post))
+            for p in popped:
+                p[3].end()  # runtime.keyframe
             return True
         return False
 
@@ -373,7 +398,7 @@ class Segmenter:
         with self._cloud_processing_lock:
             if not self._local_map_queue:
                 return False
-            lmap = self._local_map_queue[0]
+            lmap, root, wait = self._local_map_queue[0]
             last_ids = lmap.nodes[-1].subimage_seqs if lmap.nodes else []
             with self._frame_lock:
                 complete = all(
@@ -385,28 +410,32 @@ class Segmenter:
                 return False  # postpone (:548-553)
             self._local_map_queue.popleft()
 
-        nodes: List[MapNodeFrames] = []
-        for node in lmap.nodes:
-            frame_posteriors: List[Optional[list]] = []
-            with self._frame_lock:
-                for i, seq in enumerate(node.subimage_seqs):
-                    q = self._result_queues[i]
-                    while q and q[0][0] < seq:  # drop skipped (:589-591)
-                        q.popleft()
-                    if q and q[0][0] == seq:
-                        frame_posteriors.append(q.popleft()[1])
-                    else:
-                        log.error(
-                            "Couldn't find a semantic map for key frame: %d", seq
-                        )
-                        frame_posteriors.append(None)
-            nodes.append(MapNodeFrames(pose=node.pose, posteriors=frame_posteriors))
+        wait.end()
+        # The map worker enters the map's span: the spans of its fusion are
+        # its children.
+        with root:
+            nodes: List[MapNodeFrames] = []
+            for node in lmap.nodes:
+                frame_posteriors: List[Optional[list]] = []
+                with self._frame_lock:
+                    for i, seq in enumerate(node.subimage_seqs):
+                        q = self._result_queues[i]
+                        while q and q[0][0] < seq:  # drop skipped (:589-591)
+                            q.popleft()
+                        if q and q[0][0] == seq:
+                            frame_posteriors.append(q.popleft()[1])
+                        else:
+                            log.error(
+                                "Couldn't find a semantic map for key frame: %d", seq
+                            )
+                            frame_posteriors.append(None)
+                nodes.append(MapNodeFrames(pose=node.pose, posteriors=frame_posteriors))
 
-        labels = self._map_pipeline.run(lmap.cloud_points, lmap.cloud_rgb, nodes)
-        if self._dump:
-            self._dump_cloud(lmap, labels)
-        with self._cloud_lock:
-            self._cloud_results.append((lmap.map_id, labels))
+            labels = self._map_pipeline.run(lmap.cloud_points, lmap.cloud_rgb, nodes)
+            if self._dump:
+                self._dump_cloud(lmap, labels)
+            with self._cloud_lock:
+                self._cloud_results.append((lmap.map_id, labels))
         return True
 
     def _map_worker(self) -> None:

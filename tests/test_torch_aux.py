@@ -9,7 +9,9 @@ then ``(sum + 2) >> 2``), so against ``cv2.resize`` the contract is the JAX
 test's: at most 1 LSB (``tests/test_cv2_oracle.py:84-103``).
 """
 
+import json
 import os
+import threading
 import time
 
 import numpy as np
@@ -24,6 +26,9 @@ from rovinasemanticsegmentation_tpu_torch.utils import mcmc
 from rovinasemanticsegmentation_tpu_torch.utils.profiling import (
     StepTimer,
     device_trace,
+    span,
+    take,
+    tracing,
 )
 
 cv2 = pytest.importorskip("cv2")
@@ -87,12 +92,37 @@ class TestProfiling:
             pass
 
     def test_device_trace_writes_chrome_trace(self, tmp_path):
+        """With tracing on, the tracer's spans go into the same file on the
+        profiler's clock, each thread on its own row."""
+        worker = []
+
+        def work():
+            worker.append(threading.get_native_id())
+            with span("worker.step", request=4):
+                torch.ones(64).cumsum(0)
+
         log_dir = str(tmp_path / "trace")
-        with device_trace(log_dir):
-            torch.ones(64).cumsum(0)
+        with tracing(True), device_trace(log_dir):
+            with span("main.step"):
+                torch.ones(64).cumsum(0)
+            t = threading.Thread(target=work, name="worker")
+            t.start()
+            t.join(timeout=10)
+        assert not t.is_alive()
         path = os.path.join(log_dir, "trace.json")
         assert os.path.getsize(path) > 0
-        assert "traceEvents" in open(path).read()
+        events = json.load(open(path))["traceEvents"]
+        ours = {e["name"]: e for e in events if e.get("cat") == "port"}
+        assert ours["worker.step"]["tid"] == worker[0] != ours["main.step"]["tid"]
+        assert ours["worker.step"]["args"]["request"] == "4"
+        rows = {e["tid"]: e["args"]["name"] for e in events
+                if e.get("ph") == "M" and e.get("name") == "thread_name"}
+        assert rows[worker[0]] == f"worker ({worker[0]})"
+        step = ours["main.step"]
+        ops = [e for e in events if e.get("cat") == "cpu_op" and e["tid"] == step["tid"]]
+        assert any(step["ts"] <= o["ts"] and o["ts"] + o["dur"] <= step["ts"] + step["dur"]
+                   for o in ops)  # the profiler's cumsum inside the span: one clock
+        assert take() == []
 
 
 class TestMcmc:
