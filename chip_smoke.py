@@ -20,6 +20,12 @@ Phases, each of which raises on failure (exit code 1, no result line):
    and in 384-byte packed rows from row 0 and from a nonzero row (the rows
    around untouched), at VGA stride 2 and at 240x320 strides 1 and 5; the
    blocks whose footprint exceeds its cap are counted;
+2c. the normals kernels (``csrc/normals.cu``, three launches a frame)
+   against the plain normals on the card: angles, masks, the float64
+   integral image and the distance at the grid bit-equal, on phase 2's frame
+   at strides 2 and 5 and on a frame of the training recipe at stride 2 with
+   smoothing sizes 10, 7 and 4, one count a frame; the three launches timed
+   alone and each kernel's device time from a profiler window;
 3. kernel B (forest descent + leaf-histogram sum) against its plain version
    with the trained fixture forest, on phase 2's frame and on a batch of 8
    VGA keyframes (the serving path's shape), each as float32 rows and as
@@ -50,8 +56,9 @@ or ALU) over that pipe's rate.
    takes 10 VGA keyframes and 2 local maps of 30000 points; each map's ms,
    lattice vertex count and vertex bucket are printed; all three query
    services are called, every label is checked to be in range, both layers
-   must have points that are not Unknown, and both kernels' launch counts
-   must have risen during this phase;
+   must have points that are not Unknown, and the launch counts of A and B
+   must have risen during this phase, the normals kernels' by one a
+   keyframe;
 5. reference: one VGA keyframe and one 30000-point map through the same
    pipelines on the CPU (plain versions) and on the card, with the dense CRF
    off and on, must agree on >= 99.9% of the map labels; on the card the
@@ -73,7 +80,8 @@ or ALU) over that pipe's rate.
    keyframes and both maps (dense CRF on, 10 iterations) after one
    validating ``run_device`` map; frame and map labels must equal the
    separate paths' (``run_batch_stacked``, then ``run_device`` per map) in
-   the same call, kernels A and B must launch; ms per batch and per
+   the same call, kernels A and B must launch and the normals kernels once
+   a keyframe; ms per batch and per
    keyframe of both;
 9. the evaluation CLI: ``cli.test_multi`` of the port over a synthetic
    4-image VGA dataset (the fixture forest as its shared model) on the card
@@ -114,8 +122,10 @@ or ALU) over that pipe's rate.
    2.4e-7 rad); ``chamfer_distance_map``, exact and ``iter`` (bit-equal);
    ``resize_bilinear_u8`` from VGA to 11x11, 21x27 and 240x320 (bit-equal,
    and within 1 LSB of ``cv2.resize``, whose SIMD rounding differs; the
-   differing bytes are counted); ``StepTimer`` around a CUDA op and
-   ``device_trace`` writing a Chrome trace with kernels in it;
+   differing bytes are counted); ``StepTimer`` around a CUDA op and, in a
+   process of its own (``chip_smoke.py --trace-probe``), ``device_trace``
+   around ``normal_angles_grid`` writing a Chrome trace with the three
+   normals kernels in it;
 13. CRF learning on a synthetic 320x240 image (4 colours, 20% unknown): the
    ``CrfLearner`` value and gradient at its start (logistic unary, two Potts
    terms, 5 iterations, IoU) against the CPU (value within 1e-4 relative,
@@ -416,6 +426,7 @@ def run(card: str) -> dict:
         unpack_rows,
     )
     from rovinasemanticsegmentation_tpu_torch.ops import forest_staged_cuda
+    from rovinasemanticsegmentation_tpu_torch.ops import normals_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import patches_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import patches_separable_cuda
     from rovinasemanticsegmentation_tpu_torch.ops.patches import (
@@ -486,7 +497,7 @@ def run(card: str) -> dict:
 
     counters = (patches_cuda.launches, patches_cuda.pack_launches,
                 forest_cuda.launches, forest_staged_cuda.launches,
-                patches_separable_cuda.launches)
+                patches_separable_cuda.launches, normals_cuda.launches)
 
     def reset_counts():
         for counter in counters:
@@ -686,6 +697,9 @@ def run(card: str) -> dict:
         plain_ms=plain_ms_d, blocks_over_cap=blocks_over_cap,
         blocks=blocks_d, **bound_d
     )
+
+    # ---- phase 2c: the normals kernels vs the plain normals
+    results["normals"] = normals_phase(card, dev, frames[0][1], calib)
 
     # ---- phase 3: kernel B vs plain, fixture forest, float and packed rows
     forest_np = load_forest(FIXTURE, class_counts=[8, 9])
@@ -937,6 +951,7 @@ def run(card: str) -> dict:
             "pack_lab": patches_cuda.pack_launches.value,
             "patches": patches_cuda.launches.value,
             "forest_descent": forest_cuda.launches.value,
+            "normals": normals_cuda.launches.value,
         }
         base = server.address + "/semantic_segmentation"
         ids = http_json(base + "/local_map_ids")["local_map_ids"]
@@ -968,6 +983,8 @@ def run(card: str) -> dict:
     finally:
         server.stop()
         seg.stop()
+    check(launches["normals"] == N_KEYFRAMES, f"the normals kernels took "
+          f"{launches['normals']} of the {N_KEYFRAMES} keyframes served")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched while serving")
         results[name]["launches"] = n
@@ -1196,7 +1213,8 @@ def run(card: str) -> dict:
     reset_counts()
     got8 = staged()
     launches8 = {"patches": patches_cuda.launches.value,
-                 "forest_descent": forest_cuda.launches.value}
+                 "forest_descent": forest_cuda.launches.value,
+                 "normals": normals_cuda.launches.value}
     torch.cuda.synchronize()
     mp8.flush()
     for f, (a, w) in enumerate(zip(got8[0], want8[0])):
@@ -1209,6 +1227,8 @@ def run(card: str) -> dict:
                   "from run_device's")
     for name, n in launches8.items():
         check(n > 0, f"kernel {name} was not launched by the streaming step")
+    check(launches8["normals"] == b, f"the normals kernels took "
+          f"{launches8['normals']} of the streaming step's {b} keyframes")
 
     runs8 = {staged: [], separate: []}
     for _ in range(3):  # interleaved, so that drift of the host hits both
@@ -1401,8 +1421,108 @@ def run(card: str) -> dict:
                 "library_ms": None,
                 **results["patches_separable"],
             },
+            {
+                "name": "normals",
+                "route": "cuda",
+                "source": "rovinasemanticsegmentation_tpu_torch/csrc/"
+                          "normals.cu",
+                "replaces": None,  # XLA ops in the JAX package: no kernel
+                "library_ms": None,
+                **results["normals"],
+            },
         ],
     }
+
+
+def normals_phase(card: str, dev, depth, calib) -> dict:
+    """Phase 2c: the normals kernels against the plain normals on the card.
+    -> the kernels' numbers at VGA, stride 2, size 10 (the frame path's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rovinasemanticsegmentation_tpu_torch.ops import normals, normals_cuda
+    from rovinasemanticsegmentation_tpu_torch.ops.geometry import backproject
+    from rovinasemanticsegmentation_tpu_torch.scripts import (
+        make_bench_forest as recipe,
+    )
+
+    def points_of(depth_mm):
+        return backproject(torch.from_numpy(depth_mm.astype(np.int32)).to(dev),
+                           calib.intrinsic_inverse, np.eye(3), np.zeros(3),
+                           0.5, 15.0)
+
+    def compare(points, stride, size, name):
+        launch, got, integ, dist = normals_cuda.launcher(points, stride, 0.02,
+                                                         size)
+        before = normals_cuda.launches.value
+        launch()
+        torch.cuda.synchronize()
+        check(normals_cuda.launches.value == before + 1,
+              f"normals kernels ({name}): the frame was not counted once")
+        want = normals._normal_angles(points, stride, 0.02, size)
+        change = normals._depth_change_map(points[..., 2], 0.02)
+        check(torch.equal(integ, normals._gradient_integral(points)[:, 1:, 1:]),
+              f"normals kernels ({name}): the integral image differs")
+        check(torch.equal(dist, normals.chamfer_distance_map(
+            change, saturation=size)[::stride, ::stride]),
+              f"normals kernels ({name}): the grid distance differs")
+        check(torch.equal(got, want),
+              f"normals kernels ({name}): the angles differ from the plain "
+              "version's")
+        print(f"phase 2c: normals kernels == plain on {name}, stride {stride}, "
+              f"size {size:g}: {int((want != -2.0).sum())} valid of "
+              f"{want.numel()} grid points, angles, integral image and grid "
+              f"distance bit-equal")
+
+    bench_points = points_of(depth)
+    compare(bench_points, STRIDE, 10.0, "phase 2's frame")
+    compare(bench_points, 5, 10.0, "phase 2's frame")
+    _, recipe_depth, _ = next(recipe.frames())
+    recipe_points = points_of(recipe_depth)
+    for size in (10.0, 7.0, 4.0):
+        compare(recipe_points, STRIDE, size, "a recipe frame")
+
+    launch, _, _, _ = normals_cuda.launcher(bench_points, STRIDE, 0.02, 10.0)
+    ms = time_launch(launch, 50)
+    wrapper_ms = time_cuda(
+        lambda: normals_cuda.normal_angles_grid(bench_points, STRIDE), 50)
+    plain_ms = time_cuda(
+        lambda: normals._normal_angles(bench_points, STRIDE, 0.02, 10.0), 10)
+    reps = 20
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for e in prof.events():
+        for name in ("normals_prepare_kernel", "normals_row_scan_kernel",
+                     "normals_angle_kernel"):
+            if e.device_type.name != "CPU" and name in e.name:
+                per_kernel[name] = (per_kernel.get(name, 0.0)
+                                    + e.time_range.elapsed_us() / 1000 / reps)
+    check(len(per_kernel) == 3, f"normals kernels in the profile: {per_kernel}")
+    # The bound: port_bench/roofline.py's "normals" stage (200 flops a pixel,
+    # 60 a grid point at 67 TFLOP/s; depth read, angles written), and the
+    # float64 integral image written and read once at 3.35 TB/s.
+    hw = depth.size
+    p = -(-depth.shape[0] // STRIDE) * -(-depth.shape[1] // STRIDE)
+    stage_ms = 1e3 * max((2 * hw + 4 * p) / 3.35e12,
+                         (200 * hw + 60 * p) / 67e12)
+    integral_bytes = 8 * normals_cuda.CHANNELS * hw
+    floor_ms = 1e3 * 2 * integral_bytes / 3.35e12
+    bound_ms = max(stage_ms, floor_ms)
+    kernels = ", ".join(f"{k} {v:.4f} ms" for k, v in per_kernel.items())
+    print(f"phase 2c: normals kernels at VGA stride 2, size 10: device time "
+          f"alone {ms:.4f} ms for the 3 launches ({kernels}); wrapper "
+          f"{wrapper_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms by the integral image's {integral_bytes} B "
+          f"written and read once (the stage's operations {stage_ms:.4f} ms), "
+          f"{bound_ms / ms:.1%} of it ({card})")
+    return dict(max_abs_err=0, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                per_kernel_ms=per_kernel, bound_ms=bound_ms,
+                bound_by="bytes" if floor_ms >= stage_ms else "operations",
+                bound_bytes=2 * integral_bytes, stage_bound_ms=stage_ms)
 
 
 def training_phase(card: str, dev, reset_counts) -> dict:
@@ -1623,10 +1743,7 @@ def public_functions_phase(card: str, dev) -> None:
     from rovinasemanticsegmentation_tpu_torch.scripts import (
         make_bench_forest as recipe,
     )
-    from rovinasemanticsegmentation_tpu_torch.utils.profiling import (
-        StepTimer,
-        device_trace,
-    )
+    from rovinasemanticsegmentation_tpu_torch.utils.profiling import StepTimer
 
     rgb, depth, _ = next(recipe.frames())
     pts_cpu = geometry.backproject(
@@ -1680,17 +1797,57 @@ def public_functions_phase(card: str, dev) -> None:
     big = torch.rand(1 << 24, device=dev)
     out = timer.time("cumsum", lambda: torch.cumsum(big, 0))
     check(timer.stats["cumsum"].count == 1 and out.is_cuda, "StepTimer.time")
+    # device_trace in a process of its own: by this phase a profiler window
+    # in this process loses device records, the parent commit's too (around
+    # one kernel it records none, around the plain normals' ~850 launches
+    # all but ~9), and normal_angles_grid is three launches.
+    probe = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--trace-probe"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT)
+    check(probe.returncode == 0, f"the device_trace probe failed: "
+          f"{probe.stderr[-2000:]}")
+    traced = json.loads(probe.stdout.strip().splitlines()[-1])
+    check(traced["kernels"] == traced["launches"] == 3,
+          f"device_trace around normal_angles_grid: {traced}")
+    print(f"phase 12: StepTimer around a 2^24-element cumsum on the card "
+          f"{1000 * timer.stats['cumsum'].mean:.3f} ms; device_trace (in a "
+          f"process of its own) around normal_angles_grid wrote "
+          f"{traced['events']} events, {traced['kernels']} of them kernels, "
+          f"the normals kernels' {traced['launches']} launches ({card})")
+
+
+def trace_probe() -> dict:
+    """``device_trace`` around ``normal_angles_grid`` at VGA on a recipe
+    frame, in a fresh process: the trace's events, kernels, and the launches
+    the normals kernels counted."""
+    import torch
+
+    from rovinasemanticsegmentation_tpu_torch.ops import geometry, normals
+    from rovinasemanticsegmentation_tpu_torch.ops import normals_cuda
+    from rovinasemanticsegmentation_tpu_torch.scripts import (
+        make_bench_forest as recipe,
+    )
+    from rovinasemanticsegmentation_tpu_torch.utils.profiling import (
+        device_trace,
+    )
+
+    _, depth, _ = next(recipe.frames())
+    pts = geometry.backproject(
+        torch.from_numpy(depth.astype(np.int32)).cuda(),
+        recipe.calibration().intrinsic_inverse, np.eye(3), np.zeros(3), 0.5,
+        15.0)
+    normals.normal_angles_grid(pts, 2)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    before = normals_cuda.launches.value
     with tempfile.TemporaryDirectory() as root:
         with device_trace(root):
             normals.normal_angles_grid(pts, 2)
             torch.cuda.synchronize()
         with open(os.path.join(root, "trace.json")) as f:
             events = json.load(f)["traceEvents"]
-    kernels = sum(1 for e in events if e.get("cat") == "kernel")
-    check(kernels > 0, "device_trace recorded no kernel")
-    print(f"phase 12: StepTimer around a 2^24-element cumsum on the card "
-          f"{1000 * timer.stats['cumsum'].mean:.3f} ms; device_trace wrote "
-          f"{len(events)} events, {kernels} of them kernels ({card})")
+    return {"events": len(events),
+            "kernels": sum(1 for e in events if e.get("cat") == "kernel"),
+            "launches": 3 * (normals_cuda.launches.value - before)}
 
 
 def parallel_phase(card: str, dev, frames, calib, forest_np, cloud,
@@ -2156,6 +2313,9 @@ def main() -> int:
               "script measures the port on an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    if sys.argv[1:] == ["--trace-probe"]:
+        print(json.dumps(trace_probe()))
+        return 0
     try:
         from rovinasemanticsegmentation_tpu_torch.scripts import (
             card_description,

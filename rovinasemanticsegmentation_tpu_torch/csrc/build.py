@@ -24,7 +24,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = (
     "patches.cu", "forest_descent.cu", "forest_descent_staged.cu",
-    "patches_separable.cu",
+    "patches_separable.cu", "normals.cu",
 )
 HEADERS = ("async_copy.cuh",)  # included by the sources; part of the hash
 # No --use_fast_math: the patch kernel's floorf(77 / (2 d)) must be IEEE
@@ -41,6 +41,7 @@ MAX_SHARED_BYTES = 232448
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 # Signatures of the C entry points; every one returns cudaGetLastError().
 _SIGNATURES = {
     # lab, pixels, out, stream
@@ -61,6 +62,9 @@ _SIGNATURES = {
     # row0, row_bytes, footprint_cap, over_cap, stream
     "rovina_patches_separable": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                               _P, _I64, _I, _I, _P, _P],
+    # points, h, w, stride, gh, gw, factor, size, log_nx, integ, dist, out,
+    # stream
+    "rovina_normals": [_P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

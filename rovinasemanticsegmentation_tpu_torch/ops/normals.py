@@ -31,6 +31,11 @@ from its own float64 run on the recipe's VGA frames, on 1.0-1.7% of the
 valid grid points beyond 2e-3 rad. In float64 the angles are within one
 float32 rounding of that run, and a parallel scan on the card rounds the same
 way as a sequential one on the CPU.
+
+On a CUDA tensor, :func:`normal_angles_grid` at an integral smoothing size up
+to ``ops/normals_cuda.py::MAX_SIZE`` runs as three kernel launches
+(``csrc/normals.cu``), bit-equal to the PyTorch operators below on the card;
+they stay the CPU path and the kernels' yardstick.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ import math
 from typing import Optional
 
 import torch
+
+from . import normals_cuda
 
 
 def _shift_nan(a: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -181,7 +188,12 @@ def normal_angles_grid(
 ) -> torch.Tensor:  # [ceil(H/s), ceil(W/s)] float32 angles, -2 where invalid
     """Angles at the stride-grid samples only: the integral images and the
     distance transform run at full resolution (their windows span full-res
-    data), the box sums and everything per point at the grid pixels."""
+    data), the box sums and everything per point at the grid pixels. The
+    kernels take it where ``normals_cuda.engages``."""
+    if normals_cuda.engages(points.device, normal_smoothing_size):
+        return normals_cuda.normal_angles_grid(
+            points, int(stride), max_depth_change_factor,
+            normal_smoothing_size)
     return _normal_angles(points, int(stride), max_depth_change_factor,
                           normal_smoothing_size)
 
@@ -246,53 +258,30 @@ def _gradient_integral(points: torch.Tensor) -> torch.Tensor:
 
 def _box_normals(integ, distance, invalid, stride: Optional[int],
                  normal_smoothing_size) -> torch.Tensor:
-    """Box sums of the integral image over each pixel's smoothing window
+    """Box sums of the integral image over each sample's own smoothing window
     (at the stride-grid samples, or everywhere with ``stride=None``), their
     cross product, and the angle, -2 where invalid."""
     dev = integ.device
     h, w = distance.shape
-    ys_full = torch.arange(h, device=dev)[:, None]
-    xs_full = torch.arange(w, device=dev)[None, :]
     border = int(normal_smoothing_size)
+    s = 1 if stride is None else stride
+    smoothing = torch.clamp(distance[::s, ::s], max=normal_smoothing_size)
+    invalid = invalid[::s, ::s]
+    ys = (torch.arange(smoothing.shape[0], device=dev) * s)[:, None]
+    xs = (torch.arange(smoothing.shape[1], device=dev) * s)[None, :]
+    # The window [pos - rect/2, pos - rect/2 + rect) as corners of the
+    # zero-padded integral image. Where rect < 2 the box is no window, and
+    # the smoothing > 2 gate below masks it.
+    rect = smoothing.to(torch.int64)  # int() truncation
+    r2 = rect // 2
+    y0, y1 = torch.clamp(ys - r2, 0, h), torch.clamp(ys - r2 + rect, 0, h)
+    x0, x1 = torch.clamp(xs - r2, 0, w), torch.clamp(xs - r2 + rect, 0, w)
+    flat = integ.reshape(8, -1)
 
-    if stride is not None:
-        s = stride
-        smoothing = torch.clamp(distance[::s, ::s], max=normal_smoothing_size)
-        invalid = invalid[::s, ::s]
-        rect = smoothing.to(torch.int32)  # int() truncation
-        gh, gw = rect.shape
-        gys = torch.arange(gh, device=dev) * s
-        gxs = torch.arange(gw, device=dev) * s
+    def at(yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:  # [8, gh, gw]
+        return flat[:, yi * (w + 1) + xi]
 
-        def corner(dy: int, dx: int) -> torch.Tensor:  # [8, gh, gw]
-            yi = torch.clamp(gys + dy, 0, h)
-            xi = torch.clamp(gxs + dx, 0, w)
-            return integ[:, yi][:, :, xi]
-
-        # rect takes the values 2..int(size): one box per value, selected.
-        acc = integ.new_zeros((8, gh, gw))
-        for r in range(2, border + 1):
-            d0 = -(r // 2)
-            d1 = d0 + r  # exclusive end -> integral corner offset
-            box = corner(d1, d1) - corner(d0, d1) - corner(d1, d0) + corner(d0, d0)
-            acc = torch.where((rect == r)[None], box, acc)
-        ys_g, xs_g = gys[:, None], gxs[None, :]
-    else:
-        smoothing = torch.clamp(distance, max=normal_smoothing_size)
-        rect = smoothing.to(torch.int64)
-        r2 = rect // 2
-        y0 = torch.clamp(ys_full - r2, 0, h - 1)
-        y1 = torch.clamp(ys_full - r2 + rect - 1, 0, h - 1) + 1
-        x0 = torch.clamp(xs_full - r2, 0, w - 1)
-        x1 = torch.clamp(xs_full - r2 + rect - 1, 0, w - 1) + 1
-        flat = integ.reshape(8, -1)
-
-        def at(yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:  # [8, H, W]
-            return flat[:, yi * (w + 1) + xi]
-
-        acc = at(y1, x1) - at(y0, x1) - at(y1, x0) + at(y0, x0)
-        ys_g, xs_g = ys_full, xs_full
-
+    acc = at(y1, x1) - at(y0, x1) - at(y1, x0) + at(y0, x0)
     sum_gx = acc[0:3].permute(1, 2, 0)
     sum_gy = acc[3:6].permute(1, 2, 0)
     cnt_x, cnt_y = acc[6], acc[7]
@@ -304,10 +293,10 @@ def _box_normals(integ, distance, invalid, stride: Optional[int],
         & (cnt_x > 0)
         & (cnt_y > 0)
         & (norm > 0)
-        & (ys_g >= border)
-        & (ys_g < h - border)
-        & (xs_g >= border)
-        & (xs_g < w - border)
+        & (ys >= border)
+        & (ys < h - border)
+        & (xs >= border)
+        & (xs < w - border)
     )
     nz = torch.abs(normal[..., 2]) / torch.clamp(norm, min=1e-20)
     angle = torch.arccos(torch.clamp(nz, 0.0, 1.0)).float()

@@ -17,15 +17,23 @@ frame's centre) at stride 2. Stages (``ops/normals.py``):
                        full-height passes of non-integral smoothing sizes
   grads + integral     ``_gradient_integral``: the central differences and
                        the float64 integral image (float64 as in the path)
-  normals (whole)      ``normal_angles_grid(points, 2)``
+  normals (plain)      the stages above composed with ``_box_normals``: the
+                       plain version, which the card ran before the kernels
+  normals (kernels)    ``ops/normals_cuda.py::normal_angles_grid``: the three
+                       launches of ``csrc/normals.cu`` (on the card only)
+  normals (whole)      ``normal_angles_grid(points, 2)``: the production
+                       call, the kernels on the card, the plain version on
+                       the CPU
 
 Call i's input: depth + i where it is nonzero (backproject); points + ``i *
-1e-6`` m (change map, grads + integral, whole); one pixel of the change map
+1e-6`` m (change map, grads + integral, the three normals rows); one pixel of
+the change map
 flipped at a position made from i (both chamfers). The summary gives the sum
 of change map, iterated chamfer and grads + integral beside the whole, which
 also holds the box sums and the angle (the sum is not checked against it).
-Check: the stages composed with ``_box_normals`` equal ``normal_angles_grid``
-(masks equal, angles within 2.4e-7 rad). The JAX script's banded chamfer and
+Checks: the stages composed with ``_box_normals`` equal ``normal_angles_grid``
+(masks equal, angles within 2.4e-7 rad); on the card the kernels equal the
+plain version bit for bit. The JAX script's banded chamfer and
 its tuning record are not ported. Timing method: ``stage_timing``.
 """
 
@@ -45,6 +53,7 @@ from ..ops.normals import (
     chamfer_distance_map,
     normal_angles_grid,
 )
+from ..ops import normals_cuda
 from .stage_timing import (
     Stage,
     arguments,
@@ -115,6 +124,11 @@ def stages(depth: torch.Tensor, kinv) -> List[Stage]:
               lambda i: (flip_one(change, i),), chamfer_distance_map,
               EXACT_CALLS),
         Stage("grads + integral (float64)", pts, _gradient_integral, (K1, K2)),
+        Stage("normals (plain)", pts, chain, (K1, K2)),
+    ] + ([
+        Stage("normals (kernels)", pts,
+              lambda p: normals_cuda.normal_angles_grid(p, STRIDE), (K1, K2)),
+    ] if depth.is_cuda else []) + [
         Stage("normals (whole)", pts,
               lambda p: normal_angles_grid(p, STRIDE), (K1, K2)),
     ]
@@ -136,15 +150,20 @@ def main(argv: Optional[List[str]] = None) -> int:
             and float((got - want).abs().max()) <= ANGLE_TOL,
         "valid grid points": bool(mask.any()),
     }
+    if points.is_cuda:
+        checks["kernels == plain, bit for bit"] = bool(torch.equal(
+            normals_cuda.normal_angles_grid(points, STRIDE), got))
     lines, sums = [], {}
     if all(checks.values()):
         lines = measure("profile_normals", stages(depth, kinv), args.reps, dev)
         sums = {"change map + iterated chamfer + grads + integral": sum(
             wall(lines, s) for s in ("change map", "iterated chamfer",
                                      "grads + integral (float64)")),
+            "normals (plain)": wall(lines, "normals (plain)"),
             "normals (whole)": wall(lines, "normals (whole)")}
     return finish("profile_normals", lines, checks, dev,
-                  frame=list(args.frame), stride=STRIDE, wall_ms_sums=sums)
+                  frame=list(args.frame), stride=STRIDE, wall_ms_sums=sums,
+                  normals_launches=normals_cuda.launches.value)
 
 
 if __name__ == "__main__":
