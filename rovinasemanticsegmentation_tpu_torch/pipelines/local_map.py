@@ -38,7 +38,10 @@ from ..models.lattice import (
     lattice_tensors,
     pad_lattice,
 )
-from ..utils.profiling import span
+from ..utils.profiling import counter, span
+
+#: (node, camera) views that ``fuse_unaries`` projected the map into
+fusion_views = counter("fusion.views")
 
 
 @dataclass
@@ -230,7 +233,13 @@ class LocalMapPipeline:
     def fuse_unaries(
         self, cloud_points, nodes: Sequence[MapNodeFrames]
     ) -> List[torch.Tensor]:
-        """Per-layer [N, C_l] unary sums over the nodes (segmenter.cpp:561-626)."""
+        """Per-layer [N, C_l] unary sums over the nodes (segmenter.cpp:561-626).
+
+        Each node's cameras are projected together into the stacked image,
+        their contributions summed and that sum added to the map's: nodes in
+        order, cameras in order within a node. A node none of whose cameras
+        has posteriors is not projected; each projected node adds its
+        cameras to ``fusion.views``."""
         proj = self.projector
         dev = self.device
         points = torch.as_tensor(cloud_points, dtype=torch.float32, device=dev)
@@ -247,6 +256,7 @@ class LocalMapPipeline:
             if all(layers is None for layers in cams):
                 continue  # zero posteriors add nothing
             rot, trans = self._node_transforms(node.pose)
+            fusion_views.add(ncam)
             won, flat = project_winners(
                 points, rot, trans, self._intrinsics,
                 proj.min_distance, proj.max_distance, proj.height, proj.width,

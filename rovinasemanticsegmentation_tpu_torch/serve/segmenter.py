@@ -15,7 +15,8 @@ Semantics kept from the reference:
   by < 3, else the frame is dropped (:278-287); an already cleared id raises;
 - worker A (per-frame inference) and worker B (map fusion) are daemon
   threads fed by locked deques (:227-232, 323-443, 518-719); a backlog of
-  frames rides one batched descent;
+  keyframe nodes, all of each node's camera frames, rides one batched
+  descent;
 - a local map fuses only when every camera's result queue has reached its
   last needed seq id (:537-553); stale results are dropped (:589-596);
 - results are stored per map id and served by the services (:722-792).
@@ -23,13 +24,16 @@ Semantics kept from the reference:
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
+from typing import (
+    Any, Callable, Deque, Dict, List, NamedTuple, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 import torch
@@ -47,10 +51,13 @@ from ..utils.labels import (
     LayerCoding,
     parse_color_codings,
 )
-from ..utils.profiling import span
+from ..utils.profiling import counter, span
 from .camera import CameraBuffer, parse_name_from_topic
 
 log = logging.getLogger(__name__)
+
+#: frames the frame worker segmented (a batch adds its size)
+frames_segmented = counter("segmenter.frames")
 
 
 @dataclass
@@ -70,6 +77,18 @@ class LocalMapData:
     nodes: List[MapNode]
     cloud_points: np.ndarray  # [N, 3]
     cloud_rgb: Optional[np.ndarray] = None  # [N, 3] in [0, 1]
+
+
+class _QueuedFrame(NamedTuple):
+    """One camera's frame of a keyframe node in its image queue, with the
+    node's tracer spans (no-ops with tracing off)."""
+
+    seq: int
+    depth: np.ndarray
+    rgb: np.ndarray
+    node: int  # the keyframe node's id
+    keyframe: Any  # runtime.keyframe, ended once per camera
+    wait: Any  # runtime.frame_queue
 
 
 def rotation_angle(r: np.ndarray) -> float:
@@ -150,9 +169,8 @@ class Segmenter:
         self._cloud_processing_lock = threading.Lock()
         self._cameras_in_order: List[CameraBuffer] = []
         # Queued items carry their tracer spans (no-ops with tracing off):
-        # (seq, depth, rgb, keyframe span, queue span) per camera, and
-        # (map, map span, queue span).
-        self._image_queues: List[Deque[tuple]] = []
+        # a ``_QueuedFrame`` per camera, and (map, map span, queue span).
+        self._image_queues: List[Deque[_QueuedFrame]] = []
         self._result_queues: List[Deque[Tuple[int, list]]] = []
         self._local_map_queue: Deque[tuple] = deque()
         self._cloud_results: List[Tuple[int, List[np.ndarray]]] = []
@@ -298,9 +316,9 @@ class Segmenter:
                 (color_seq, rgb), (depth_seq, depth) = got
                 # Depth must match; color may trail by < 3 (:278-287).
                 if depth_seq == seq and depth_seq - color_seq < 3:
-                    self._image_queues[i].append(
-                        (depth_seq, depth, rgb, keyframe,
-                         span("runtime.frame_queue", parent=keyframe)))
+                    self._image_queues[i].append(_QueuedFrame(
+                        depth_seq, depth, rgb, node.node_id, keyframe,
+                        span("runtime.frame_queue", parent=keyframe)))
                 else:
                     keyframe.end()  # this camera's part of the keyframe
                     log.error(
@@ -321,49 +339,73 @@ class Segmenter:
     # ------------------------------------------------------------------
     # Worker A: per-frame inference (segmenter.cpp:323-514)
     # ------------------------------------------------------------------
-    #: batch sizes taken from a camera's backlog; one descent per batch.
+    #: batch sizes in keyframe nodes taken from the backlog; one descent per
+    #: batch.
     _BATCH_LADDER = (8, 4, 2, 1)
 
     def _process_one_frame(self) -> bool:
-        """Segment queued frames of one camera; True if any were processed.
+        """Segment queued frames; True if any were processed.
 
-        A backlog of up to 8 frames rides one batched pipeline call, the
-        serving analogue of the reference's one-frame-at-a-time worker loop
-        (segmenter.cpp:323-443).
+        A backlog of up to 8 keyframe nodes rides one batched pipeline call
+        and one descent, the serving analogue of the reference's
+        one-frame-at-a-time worker loop (segmenter.cpp:323-443): the batch
+        holds all of its nodes' queued camera frames, in node order and then
+        camera order, each with its own camera's calibration. Each posterior
+        goes to its camera's result queue, in that queue's order; a node's
+        ``runtime.keyframe`` span ends once all its cameras' posteriors are
+        there. With one camera a batch is 8, 4, 2 or 1 frames of its
+        backlog. The external hook takes one frame at a time.
         """
+        if self._external is not None:
+            return self._process_external_frame()
+        top = self._BATCH_LADDER[0]
+        with self._frame_lock:
+            # Each queue is in node order, so the first ``top`` nodes queued
+            # lie among the first ``top`` frames of each queue.
+            queued = sorted({f.node for q in self._image_queues
+                             for f in itertools.islice(q, top)})[:top]
+            if not queued:
+                return False
+            nodes = queued[:next(b for b in self._BATCH_LADDER if b <= len(queued))]
+            batch = []  # (node, camera index, frame)
+            for i, q in enumerate(self._image_queues):
+                while q and q[0].node <= nodes[-1]:
+                    batch.append((q[0].node, i, q.popleft()))
+            calibs = [cam.calibration for cam in self._cameras_in_order]
+        batch.sort(key=lambda b: b[:2])
+        for *_, f in batch:
+            f.wait.end()  # runtime.frame_queue
+        cameras = len({i for _, i, _ in batch})
+        with span("runtime.frame_batch", request=nodes, attrs={"cameras": cameras}):
+            results = self._frame_pipeline.run_batch(
+                [f.rgb for *_, f in batch], [f.depth for *_, f in batch],
+                [calibs[i] for _, i, _ in batch],
+            )
+        frames_segmented.add(len(batch))
+        with self._frame_lock:
+            for (_, i, f), r in zip(batch, results):
+                # Posteriors stay on the device: fusion consumes them there.
+                self._result_queues[i].append((f.seq, list(r.posteriors)))
+        for *_, f in batch:
+            f.keyframe.end()  # runtime.keyframe, this camera's part
+        return True
+
+    def _process_external_frame(self) -> bool:
+        """One queued frame of the first camera that has one, through the
+        external hook; True if there was one."""
         for i, cam in enumerate(self._cameras_in_order):
             with self._frame_lock:
                 if not self._image_queues[i]:
                     continue
-                avail = len(self._image_queues[i])
-                batch = 1
-                if self._external is None:
-                    batch = next(b for b in self._BATCH_LADDER if b <= avail)
-                popped = [
-                    self._image_queues[i].popleft() for _ in range(batch)
-                ]
+                f = self._image_queues[i].popleft()
                 calib = cam.calibration
-            for p in popped:
-                p[4].end()  # runtime.frame_queue
-            seqs = [p[0] for p in popped]
-            nodes = [p[3].request for p in popped]
-            with span("runtime.frame_batch", request=nodes):
-                if self._external is not None:
-                    (_, depth, rgb) = popped[0][:3]
-                    posteriors = [self._external_frame(rgb, depth, calib)]
-                else:
-                    results = self._frame_pipeline.run_batch(
-                        [p[2] for p in popped],
-                        [p[1] for p in popped],
-                        [calib] * batch,
-                    )
-                    # Posteriors stay on the device: fusion consumes them there.
-                    posteriors = [list(r.posteriors) for r in results]
+            f.wait.end()  # runtime.frame_queue
+            with span("runtime.frame_batch", request=[f.node], attrs={"cameras": 1}):
+                posteriors = self._external_frame(f.rgb, f.depth, calib)
+            frames_segmented.add()
             with self._frame_lock:
-                for seq, post in zip(seqs, posteriors):
-                    self._result_queues[i].append((seq, post))
-            for p in popped:
-                p[3].end()  # runtime.keyframe
+                self._result_queues[i].append((f.seq, posteriors))
+            f.keyframe.end()  # runtime.keyframe, this camera's part
             return True
         return False
 

@@ -8,8 +8,9 @@ microsecond timer (``learning.cpp:1105``).
 One tracer per process:
 
 - **Spans.** ``span(name, request)`` records a name, a start and an end, the
-  thread that opened it, its parent span and the request it serves (a
-  keyframe's node id, a map's id; by default its parent's). Used as ``with
+  thread that opened it, its parent span, the request it serves (a
+  keyframe's node id, a map's id; by default its parent's) and, where the
+  caller gives them, named ``attrs`` (a frame batch's cameras). Used as ``with
   span(...)``, it is the parent of the spans opened inside it on that thread.
   A span handed to another thread is ended there with ``end()``, or entered
   there with ``with``, so that the spans opened inside are its children.
@@ -66,6 +67,7 @@ class Span(NamedTuple):
     parent: Optional[int]  # the parent's ``id``
     request: Any  # node id, map id, or a list of them
     id: int
+    attrs: Optional[dict] = None  # the caller's named values, if any
 
 
 class tracing:
@@ -90,7 +92,7 @@ class _Off:
     """The shared span of tracing off: records nothing."""
 
     __slots__ = ()
-    id = request = None
+    id = request = attrs = None
 
     def __enter__(self) -> "_Off":
         return self
@@ -121,9 +123,9 @@ class _Open:
     many ``end()`` calls, from whichever threads make them."""
 
     __slots__ = ("name", "start_ns", "thread", "parent", "request", "id",
-                 "parts")
+                 "parts", "attrs")
 
-    def __init__(self, name, request, parent, parts):
+    def __init__(self, name, request, parent, parts, attrs):
         self.start_ns = clock()
         self.thread, stack = _thread()
         if parent is None and stack:
@@ -134,6 +136,7 @@ class _Open:
                         else parent.request)
         self.id = next(_ids)
         self.parts = parts
+        self.attrs = attrs
 
     def __enter__(self) -> "_Open":
         _thread()[1].append(self)
@@ -156,16 +159,18 @@ class _Open:
         # A plain tuple (``take`` makes it a ``Span``); ``list.append`` is
         # atomic, and ``take`` removes only what it copied.
         _spans.append((self.name, self.start_ns, end_ns, self.thread,
-                       self.parent, self.request, self.id))
+                       self.parent, self.request, self.id, self.attrs))
 
 
-def span(name: str, request: Any = None, parent=None, parts: int = 1):
+def span(name: str, request: Any = None, parent=None, parts: int = 1,
+         attrs: Optional[dict] = None):
     """A span named ``name`` serving ``request`` (default: its parent's),
     child of ``parent`` (default: the innermost span entered with ``with``
-    on this thread); the shared no-op while tracing is off."""
+    on this thread), with the named values ``attrs``; the shared no-op
+    while tracing is off."""
     if not _on:
         return _OFF
-    return _Open(name, request, parent, parts)
+    return _Open(name, request, parent, parts, attrs)
 
 
 def take() -> List[Span]:
@@ -205,9 +210,9 @@ class Counter:
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:
@@ -327,7 +332,7 @@ def _chrome_events(spans: List[Span], base_ns: int) -> List[dict]:
             ts = (s.start_ns - base_ns) / 1e3
             common = {"name": s.name, "cat": "port", "pid": pid, "tid": tid,
                       "args": {"request": repr(s.request), "id": s.id,
-                               "parent": s.parent}}
+                               "parent": s.parent, **(s.attrs or {})}}
             if not ends or s.end_ns <= ends[-1]:
                 ends.append(s.end_ns)
                 events.append(dict(common, ph="X", ts=ts,
