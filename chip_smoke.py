@@ -58,7 +58,17 @@ or ALU) over that pipe's rate.
    services are called, every label is checked to be in range, both layers
    must have points that are not Unknown, and the launch counts of A and B
    must have risen during this phase, the normals kernels' by one a
-   keyframe;
+   keyframe and the mean-field kernels' by one a map;
+4b. the mean-field kernels (``csrc/mean_field.cu``) against the plain mean
+   field on phase 4's maps with their fused unaries (the first 5 keyframes'
+   posteriors through ``fuse_unaries``), on a device lattice in the bucket:
+   the normalisation within 1e-6 relative, the marginals within 1e-5, labels
+   equal, two runs bit-equal, one count a call, ``crf_labels_multi``'s labels
+   equal to the plain mean field's; on map 0 the kernels' device time alone
+   (CUDA events, 50 calls), a ``crf_labels_multi`` call's, and from profiler
+   windows each kernel's, the normalisation's and the activities, the plain
+   mean field's time and activities, and ``port_bench/roofline.py``'s
+   mean-field bound; phase 4 must have counted one call a map;
 5. reference: one VGA keyframe and one 30000-point map through the same
    pipelines on the CPU (plain versions) and on the card, with the dense CRF
    off and on, must agree on >= 99.9% of the map labels; on the card the
@@ -362,18 +372,19 @@ def time_cuda(fn, reps, warmup=2) -> float:
 SPIN_CYCLES_PER_LAUNCH = 200_000
 
 
-def time_launch(launch, reps, warmup=2) -> float:
+def time_launch(launch, reps, warmup=2,
+                spin_cycles=SPIN_CYCLES_PER_LAUNCH) -> float:
     """Mean device ms per kernel launch. The launches are queued behind a
-    spin kernel, so the CUDA events time the card running them back to back
-    and not the host issuing them, which is slower than a kernel of a few
-    microseconds."""
+    spin kernel (``spin_cycles`` a launch), so the CUDA events time the card
+    running them back to back and not the host issuing them, which is slower
+    than a kernel of a few microseconds."""
     import torch
 
     for _ in range(warmup):
         launch()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES_PER_LAUNCH * reps)
+    torch.cuda._sleep(spin_cycles * reps)
     start.record()
     for _ in range(reps):
         launch()
@@ -426,6 +437,7 @@ def run(card: str) -> dict:
         unpack_rows,
     )
     from rovinasemanticsegmentation_tpu_torch.ops import forest_staged_cuda
+    from rovinasemanticsegmentation_tpu_torch.ops import mean_field_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import normals_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import patches_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import patches_separable_cuda
@@ -497,7 +509,8 @@ def run(card: str) -> dict:
 
     counters = (patches_cuda.launches, patches_cuda.pack_launches,
                 forest_cuda.launches, forest_staged_cuda.launches,
-                patches_separable_cuda.launches, normals_cuda.launches)
+                patches_separable_cuda.launches, normals_cuda.launches,
+                mean_field_cuda.launches)
 
     def reset_counts():
         for counter in counters:
@@ -952,6 +965,7 @@ def run(card: str) -> dict:
             "patches": patches_cuda.launches.value,
             "forest_descent": forest_cuda.launches.value,
             "normals": normals_cuda.launches.value,
+            "mean_field": mean_field_cuda.launches.value,
         }
         base = server.address + "/semantic_segmentation"
         ids = http_json(base + "/local_map_ids")["local_map_ids"]
@@ -985,9 +999,12 @@ def run(card: str) -> dict:
         seg.stop()
     check(launches["normals"] == N_KEYFRAMES, f"the normals kernels took "
           f"{launches['normals']} of the {N_KEYFRAMES} keyframes served")
+    check(launches["mean_field"] == len(maps), f"the mean-field kernels took "
+          f"{launches['mean_field']} of the {len(maps)} maps served")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched while serving")
-        results[name]["launches"] = n
+        if name in results:
+            results[name]["launches"] = n
     print(f"phase 4: {1000 * frame_s / N_KEYFRAMES:.3f} ms per keyframe "
           f"({N_KEYFRAMES} VGA keyframes) ({card})")
     for k, (ms, m, bucket) in enumerate(per_map):
@@ -998,6 +1015,11 @@ def run(card: str) -> dict:
     print(f"phase 4: {sum(p[0] for p in per_map) / len(per_map):.3f} ms per "
           f"map ({card})")
     print(f"phase 4: launches while serving: {launches}")
+
+    # ---- phase 4b: the mean-field kernels vs the plain mean field
+    results["mean_field"] = mean_field_phase(card, dev, frames, maps, calib,
+                                             forest_np)
+    results["mean_field"]["launches"] = launches["mean_field"]
 
     # ---- phase 5: the card against the CPU (plain versions) on one frame
     rgb, depth = frames[0]
@@ -1430,6 +1452,15 @@ def run(card: str) -> dict:
                 "library_ms": None,
                 **results["normals"],
             },
+            {
+                "name": "mean_field",
+                "route": "cuda",
+                "source": "rovinasemanticsegmentation_tpu_torch/csrc/"
+                          "mean_field.cu",
+                "replaces": None,  # XLA ops in the JAX package: no kernel
+                "library_ms": None,
+                **results["mean_field"],
+            },
         ],
     }
 
@@ -1523,6 +1554,156 @@ def normals_phase(card: str, dev, depth, calib) -> dict:
                 per_kernel_ms=per_kernel, bound_ms=bound_ms,
                 bound_by="bytes" if floor_ms >= stage_ms else "operations",
                 bound_bytes=2 * integral_bytes, stage_bound_ms=stage_ms)
+
+
+def mean_field_phase(card: str, dev, frames, maps, calib, forest_np) -> dict:
+    """Phase 4b: the mean-field kernels against the plain mean field on
+    phase 4's maps, with their real fused unaries. -> the kernels' numbers
+    on map 0 (30000 points, the map path's bucket)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from port_bench.roofline import map_stages
+    from rovinasemanticsegmentation_tpu_torch.features.extractor import (
+        FeatureConfig,
+    )
+    from rovinasemanticsegmentation_tpu_torch.fusion.projector import (
+        MultiProjector,
+    )
+    from rovinasemanticsegmentation_tpu_torch.models import crf
+    from rovinasemanticsegmentation_tpu_torch.models.lattice import (
+        build_lattice_device,
+        lattice_filter_t,
+    )
+    from rovinasemanticsegmentation_tpu_torch.ops import mean_field_cuda
+    from rovinasemanticsegmentation_tpu_torch.pipelines.local_map import (
+        CrfParams,
+        LocalMapPipeline,
+        MapNodeFrames,
+        _floor_labels,
+        crf_feats,
+        crf_labels_multi,
+    )
+    from rovinasemanticsegmentation_tpu_torch.pipelines.single_frame import (
+        SingleFramePipeline,
+    )
+
+    blocks, unknown, weight, iterations = (8, 9), (7, 8), 10.0, 10
+    fp = SingleFramePipeline(FeatureConfig(), forest_np, STRIDE, "cuda",
+                             fill_value=0.0)
+    projector = MultiProjector.from_calibrations([calib], H, W, min_distance=0.5)
+    mp = LocalMapPipeline(projector, list(blocks), list(unknown), "cuda",
+                          crf=CrfParams(use_dense_crf=True))
+    bucket = mp._m_bucket
+
+    def labels_of(q):
+        return [_floor_labels(ql, c, unk) for ql, c, unk
+                in zip(torch.split(q, list(blocks)), blocks, unknown)]
+
+    inputs = []
+    for k, (pts, cols) in enumerate(maps):
+        keys = range(k * MAP_EVERY, (k + 1) * MAP_EVERY)
+        batch = fp.run_batch([frames[f][0] for f in keys],
+                             [frames[f][1] for f in keys], [calib] * MAP_EVERY)
+        nodes = [MapNodeFrames(pose=pose_of(f), posteriors=[r.posteriors])
+                 for f, r in zip(keys, batch)]
+        pts_t = torch.from_numpy(pts).to(dev)
+        cols_t = torch.from_numpy(cols).to(dev)
+        fused = torch.cat(mp.fuse_unaries(pts_t, nodes), dim=1)
+        *lattice, m = build_lattice_device(
+            crf_feats(pts_t, cols_t, 0.5, 4.0), bucket)
+        m = int(m)
+        check(m <= bucket, f"map {k}: {m} vertices overflow the bucket")
+        ones = fused.new_ones((1, fused.shape[0]))
+        norm = 1.0 / torch.sqrt(lattice_filter_t(ones, *lattice, bucket)[0]
+                                + 1e-20)
+        got_norm = mean_field_cuda.symmetric_norm(*lattice, bucket)
+        norm_err = float(((got_norm - norm).abs() / norm).max())
+        check(norm_err <= 1e-6, f"map {k}: the kernels' normalisation is "
+              f"{norm_err:.3g} off the plain one")
+        args = (-fused.T, *lattice, norm, weight, blocks, bucket, iterations)
+        before = mean_field_cuda.launches.value
+        got = mean_field_cuda.potts_mean_field_multi_t(*args)
+        again = mean_field_cuda.potts_mean_field_multi_t(*args)
+        torch.cuda.synchronize()
+        check(mean_field_cuda.launches.value == before + 2,
+              f"map {k}: the mean-field kernels were not counted once a call")
+        want = crf.potts_mean_field_multi_plain_t(*args)
+        err = float((got - want).abs().max())
+        check(err <= 1e-5, f"map {k}: the marginals differ by {err:.3g}")
+        check(torch.equal(got, again), f"map {k}: two runs of the kernels "
+              "differ")
+        for li, (a, b) in enumerate(zip(labels_of(got), labels_of(want))):
+            check(torch.equal(a, b), f"map {k}, layer {li}: "
+                  f"{int((a != b).sum())} labels differ")
+        served = crf_labels_multi(fused, lattice, weight, blocks, bucket,
+                                  iterations, unknown)
+        for a, b in zip(served, labels_of(want)):
+            check(torch.equal(a, b), f"map {k}: crf_labels_multi's labels "
+                  "differ from the plain mean field's")
+        print(f"phase 4b: map {k}: mean-field kernels == plain within "
+              f"{err:.3g} ({m} vertices, bucket {bucket}): labels equal, two "
+              f"runs bit-equal, normalisation within {norm_err:.3g} relative")
+        inputs.append((fused, lattice, args))
+
+    fused, lattice, args = inputs[0]
+    launch, _ = mean_field_cuda.launcher(*args)
+    launches_per_call = 1 + (2 + lattice[5].shape[0]) * iterations
+    # ~4 us of host issue a kernel through the C entry point, spun over
+    ms = time_launch(launch, 50, spin_cycles=8000 * launches_per_call)
+    wrapper_ms = time_cuda(
+        lambda: crf_labels_multi(fused, lattice, weight, blocks, bucket,
+                                 iterations, unknown), 50)
+    plain_ms = time_cuda(lambda: crf.potts_mean_field_multi_plain_t(*args), 10)
+
+    def profiled(fn, reps=5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type.name != "CPU"]
+        per_kernel = {}
+        for e in device:
+            for name in ("mf_splat_kernel", "mf_blur_kernel", "mf_slice_kernel"):
+                if name in e.name:
+                    per_kernel[name] = (per_kernel.get(name, 0.0)
+                                        + e.time_range.elapsed_us() / 1000 / reps)
+        return (sum(e.time_range.elapsed_us() for e in device) / 1000 / reps,
+                len(device) / reps, per_kernel)
+
+    dev_ms, acts, per_kernel = profiled(launch)
+    norm_ms, norm_acts, _ = profiled(
+        lambda: mean_field_cuda.symmetric_norm(*lattice, bucket))
+    check(len(per_kernel) == 3, f"mean-field kernels in the profile: "
+          f"{per_kernel}")
+    plain_dev_ms, plain_acts, _ = profiled(
+        lambda: crf.potts_mean_field_multi_plain_t(*args), 2)
+    map_dev_ms, map_acts, _ = profiled(
+        lambda: crf_labels_multi(fused, lattice, weight, blocks, bucket,
+                                 iterations, unknown))
+    n = fused.shape[0]
+    bound_ms = 1e3 * sum(s for name, s in map_stages(
+        n, MAP_EVERY, sum(blocks), lattice[5].shape[0] - 1, bucket, iterations)
+        if name.startswith("mean_field_"))
+    kernels = ", ".join(f"{k} {v:.4f} ms" for k, v in per_kernel.items())
+    print(f"phase 4b: mean-field kernels on map 0 ({n} points, {iterations} "
+          f"iterations): device time alone {ms:.4f} ms for "
+          f"{launches_per_call} launches ({kernels} in a profile: "
+          f"{dev_ms:.4f} ms in {acts:.0f} activities); normalisation "
+          f"{norm_ms:.4f} device ms in {norm_acts:.0f} activities; "
+          f"crf_labels_multi {wrapper_ms:.4f} ms a call, "
+          f"{map_dev_ms:.4f} device ms in {map_acts:.0f} activities; plain "
+          f"{plain_ms:.4f} ms a call, {plain_dev_ms:.4f} device ms in "
+          f"{plain_acts:.0f} activities; bound (port_bench/roofline.py's "
+          f"mean_field stages) {bound_ms:.4f} ms, {bound_ms / ms:.2%} of it; "
+          f"mean_field_cuda.launches {mean_field_cuda.launches.value} "
+          f"({card})")
+    return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, per_kernel_ms=per_kernel,
+                norm_device_ms=norm_ms, device_ms=dev_ms, activities=acts,
+                plain_device_ms=plain_dev_ms, plain_activities=plain_acts,
+                bound_ms=bound_ms, bound_by="bytes")
 
 
 def training_phase(card: str, dev, reset_counts) -> dict:

@@ -83,9 +83,9 @@ from .features.extractor import (
     patch_inputs,
 )
 from .fusion.projector import MultiProjector
-from .models.crf import potts_mean_field_multi_t
+from .models.crf import potts_mean_field_multi_t, symmetric_norm
 from .models.forest import load_forest
-from .models.lattice import build_lattice_device, lattice_filter_t
+from .models.lattice import build_lattice_device
 from .ops import forest_cuda, patches_cuda
 from .ops.feature_rows import unpack_rows
 from .pipelines.local_map import (
@@ -741,8 +741,7 @@ def mean_field(unaries: torch.Tensor, feats: torch.Tensor, bucket: int):
     over a device lattice build with ``bucket`` vertex slots; -> (marginals,
     vertex count)."""
     *lattice, m = build_lattice_device(feats, bucket)
-    ones = unaries.new_ones((1, unaries.shape[0]))
-    norm = 1.0 / torch.sqrt(lattice_filter_t(ones, *lattice, bucket)[0] + 1e-20)
+    norm = symmetric_norm(lattice, bucket)
     q = potts_mean_field_multi_t(-unaries.T, *lattice, norm, CRF.kernel_weight,
                                  CLASS_COUNTS, bucket, CRF.iterations)
     return q, m

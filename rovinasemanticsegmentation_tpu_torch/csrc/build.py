@@ -24,7 +24,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = (
     "patches.cu", "forest_descent.cu", "forest_descent_staged.cu",
-    "patches_separable.cu", "normals.cu",
+    "patches_separable.cu", "normals.cu", "mean_field.cu",
 )
 HEADERS = ("async_copy.cuh",)  # included by the sources; part of the hash
 # No --use_fast_math: the patch kernel's floorf(77 / (2 d)) must be IEEE
@@ -65,6 +65,16 @@ _SIGNATURES = {
     # points, h, w, stride, gh, gw, factor, size, log_nx, integ, dist, out,
     # stream
     "rovina_normals": [_P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P],
+    # values, n, c, vec, mode, sorted_points, sorted_weights, seg_starts,
+    # seg_ends, offsets, bary, blur_n1, blur_n2, m, d1, reverse, alpha, a, b,
+    # out, stream
+    "rovina_lattice_filter": [_P, _I, _I, _I, _I, *[_P] * 8, _I, _I, _I, _F,
+                              _P, _P, _P, _P],
+    # unary, u_sc, u_sp, n, c, vec, block_ends, num_blocks, sorted_points,
+    # sorted_weights, seg_starts, seg_ends, offsets, bary, blur_n1, blur_n2,
+    # m, d1, alpha, norm, weight, n_iterations, qn, a, b, q, stream
+    "rovina_mean_field": [_P, _I64, _I64, _I, _I, _I, _P, _I, *[_P] * 8, _I,
+                          _I, _F, _P, _F, _I, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -23,7 +23,11 @@ with their sorted splat stream, so every filter is
 The map path's fused mean field (:func:`potts_mean_field_multi_t`) runs
 several independent Potts CRFs, one per label layer (``segmenter.cpp:638-644``),
 through one filter per iteration in the transposed ``[C, N]`` layout, each
-layer's softmax over its own block of channels.
+layer's softmax over its own block of channels. On CUDA tensors it and its
+:func:`symmetric_norm` run in ``csrc/mean_field.cu``'s kernels (splat, blur
+passes, slice fused with the update and softmax); the CPU, and tensors that
+require grad, keep :func:`potts_mean_field_multi_plain_t`. :class:`DenseCRF`,
+the 2D path and ``parallel/`` filter with ``lattice_filter_t`` everywhere.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops import mean_field_cuda
 from .lattice import (
     PermutohedralLattice,
     attach_sorted_stream,
@@ -427,6 +432,21 @@ def normalize_blocks(x: torch.Tensor, blocks: Sequence[int]) -> torch.Tensor:
     return torch.cat(parts, dim=0)
 
 
+def symmetric_norm(
+    lattice: Sequence[torch.Tensor],  # the 8 tensors of build_lattice_device
+    num_vertices: int,
+) -> torch.Tensor:  # [N]
+    """The symmetric normalisation ``1/sqrt(filter(ones))``
+    (pairwise.cpp:54-56), on a CUDA lattice in ``csrc/mean_field.cu``'s
+    kernels (``ops/mean_field_cuda.py``)."""
+    barycentric_t = lattice[5]
+    if mean_field_cuda.engages(None, barycentric_t):
+        return mean_field_cuda.symmetric_norm(*lattice, num_vertices)
+    ones = barycentric_t.new_ones((1, barycentric_t.shape[1]))
+    raw = lattice_filter_t(ones, *lattice, num_vertices)[0]
+    return 1.0 / torch.sqrt(raw + 1e-20)
+
+
 def potts_mean_field_multi_t(
     unary_t: torch.Tensor,  # [sum(blocks), N] energies, layers stacked
     sorted_points: torch.Tensor,
@@ -444,7 +464,36 @@ def potts_mean_field_multi_t(
     n_iterations: int,
 ) -> torch.Tensor:  # [sum(blocks), N] marginals
     """``n_iterations`` mean-field steps of the per-layer Potts CRFs
-    (``Q = expAndNormalize(-U + w * norm * K(norm * Q))``)."""
+    (``Q = expAndNormalize(-U + w * norm * K(norm * Q))``). CUDA tensors
+    take ``csrc/mean_field.cu``'s kernels (``ops/mean_field_cuda.py``), 1 +
+    9 launches an iteration; the rest :func:`potts_mean_field_multi_plain_t`."""
+    args = (unary_t, sorted_points, sorted_weights, seg_starts, seg_ends,
+            offsets_t, barycentric_t, blur_n1, blur_n2, norm, weight, blocks,
+            num_vertices, n_iterations)
+    if mean_field_cuda.engages(unary_t, barycentric_t):
+        return mean_field_cuda.potts_mean_field_multi_t(*args)
+    return potts_mean_field_multi_plain_t(*args)
+
+
+def potts_mean_field_multi_plain_t(
+    unary_t: torch.Tensor,
+    sorted_points: torch.Tensor,
+    sorted_weights: torch.Tensor,
+    seg_starts: torch.Tensor,
+    seg_ends: torch.Tensor,
+    offsets_t: torch.Tensor,
+    barycentric_t: torch.Tensor,
+    blur_n1: torch.Tensor,
+    blur_n2: torch.Tensor,
+    norm: torch.Tensor,
+    weight: float,
+    blocks: Sequence[int],
+    num_vertices: int,
+    n_iterations: int,
+) -> torch.Tensor:
+    """:func:`potts_mean_field_multi_t` in PyTorch ops on any device: one
+    :func:`~.lattice.lattice_filter_t` and one :func:`normalize_blocks` an
+    iteration."""
     q = normalize_blocks(-unary_t, blocks)
     for _ in range(n_iterations):
         filtered = lattice_filter_t(

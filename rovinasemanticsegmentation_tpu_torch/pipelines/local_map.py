@@ -29,12 +29,15 @@ import torch
 
 from ..device import resolve_device
 from ..fusion.projector import MultiProjector, project_winners
-from ..models.crf import potts_mean_field, potts_mean_field_multi_t
+from ..models.crf import (
+    potts_mean_field,
+    potts_mean_field_multi_t,
+    symmetric_norm,
+)
 from ..models.lattice import (
     attach_sorted_stream,
     build_lattice,
     build_lattice_device,
-    lattice_filter_t,
     lattice_tensors,
     pad_lattice,
 )
@@ -133,9 +136,7 @@ def crf_labels_multi(
     Unknown label (segmenter.cpp:645-657); ``overflow`` sets every label of
     every layer to Unknown.
     """
-    n = unaries.shape[0]
-    raw = lattice_filter_t(unaries.new_ones((1, n)), *lattice, num_vertices)[0]
-    norm = 1.0 / torch.sqrt(raw + 1e-20)
+    norm = symmetric_norm(lattice, num_vertices)
     q = potts_mean_field_multi_t(
         -unaries.T, *lattice, norm, weight, blocks, num_vertices, n_iterations
     )
