@@ -169,13 +169,8 @@ or ALU) over that pipe's rate.
    dry run's part 4: the fused forest equal to the tree loop. Its A and
    B launches, summed over the ranks of the frame step, are the
    ``launches_parallel`` entries.
-15. the port's bench (``python -m rovinasemanticsegmentation_tpu_torch.bench
-   --epochs 3 --curve-epochs 0``) in a process of its own, on the
-   card: each cell's line (``workers_b10``, ``stream_b10``) must be there
-   with ``correct: true`` and the ``gpu`` platform, and kernels A, its
-   ``pack_lab`` and B must have launched in each cell's timed epochs (their
-   sum over the cells is each kernel's ``launches_bench`` entry); its
-   keyframes/s and traced numbers are printed;
+15. retired (it ran the port's first bench harness; ``port_bench/`` is the
+   benchmark);
 16. the stage profilers of the main path (``scripts/exp_lattice.py``,
    ``exp_filter.py``, ``profile_normals.py``, ``profile_map.py``,
    ``profile_slope.py``) at full size, side by side, each in a process of
@@ -1388,10 +1383,6 @@ def run(card: str) -> dict:
     for name, k in launches14.items():
         results[name]["launches_parallel"] = k
 
-    # ---- phase 15: the port's bench, short
-    for name, k in bench_phase(card).items():
-        results[name]["launches_bench"] = k
-
     # ---- phase 16: the stage profilers of the main path
     for name, k in stage_profilers_phase(card).items():
         results[name]["launches_stage_profilers"] = k
@@ -2220,52 +2211,6 @@ def parallel_phase(card: str, dev, frames, calib, forest_np, cloud,
     print(f"phase 14(c): dry run part 4: the fused forest == the tree loop on "
           f"the card (nodes {fused.node_counts})")
     print(f"phase 14: {time.perf_counter() - t_phase:.3f} s ({card})")
-    return launches
-
-
-def bench_phase(card: str) -> dict:
-    """Phase 15: the port's bench at 3 timed epochs per cell, no curve; ->
-    each kernel's launches summed over the cells' timed epochs."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "rovinasemanticsegmentation_tpu_torch.bench",
-         "--epochs", "3", "--curve-epochs", "0"],
-        cwd=ROOT, capture_output=True, text=True, timeout=900,
-    )
-    check(proc.returncode == 0, f"the bench exited {proc.returncode}: "
-          f"{proc.stderr[-3000:]}")
-    lines = [json.loads(line) for line in proc.stdout.splitlines()
-             if line.startswith("{")]
-    cells = {line["cell"]: line for line in lines if "cell" in line}
-    check(sorted(cells) == ["stream_b10", "workers_b10"],
-          f"the bench's cells: {sorted(cells)}")
-    check(lines[-1].get("summary") is True and lines[-1]["correct"],
-          f"the bench's summary: {lines[-1]}")
-    launches = {}
-    for name, cell in cells.items():
-        check(cell["correct"], f"bench cell {name}: not correct: "
-              f"{cell['checks']}")
-        check(cell["device"]["platform"] == "gpu",
-              f"bench cell {name} ran on {cell['device']}")
-        for kernel, n in cell["launches"].items():
-            check(n > 0, f"bench cell {name}: kernel {kernel} was not launched")
-            launches[kernel] = launches.get(kernel, 0) + n
-        kfs, trace = cell["keyframes_per_s"], cell["trace"]
-        stages = trace["stages"]
-        print(f"phase 15: bench {name}: {kfs['median']:.3f} keyframes/s "
-              f"(quartiles {kfs['q1']:.3f}-{kfs['q3']:.3f}, n {kfs['n']}); "
-              f"traced epoch: device busy "
-              f"{trace['device_busy_ms_per_keyframe']:.3f} ms per keyframe, "
-              f"idle {trace['device_idle_share']:.1%}, "
-              f"{trace['device_activities_per_keyframe']:.1f} activities per "
-              f"keyframe; replay: frame path "
-              f"{stages['frame path']['activities_per_keyframe']:.1f} per "
-              f"keyframe, map {stages['map']['device_ms_per_map']:.3f} ms and "
-              f"{stages['map']['activities_per_map']:.1f} activities per map; "
-              f"overflows {cell['lattice_overflow_maps']} of "
-              f"{cell['maps_attempted']} maps ({card})")
-    print(f"phase 15: the bench passed its checks in "
-          f"{time.perf_counter() - t0:.3f} s; launches {launches}")
     return launches
 
 

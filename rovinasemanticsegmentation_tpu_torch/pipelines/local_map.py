@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -423,19 +423,26 @@ class LocalMapPipeline:
         except Exception:
             pass  # logging may already be torn down
 
-    def run_device(
-        self, cloud_points, cloud_rgb, nodes: Sequence[MapNodeFrames]
-    ) -> List[torch.Tensor]:
-        """Fusion, smoothing and labels for one map, left on the device.
+    def run_device_maps(
+        self, maps: Sequence[Tuple[object, object, Sequence[MapNodeFrames]]]
+    ) -> List[List[torch.Tensor]]:
+        """Fusion, smoothing and labels for each ``(cloud_points, cloud_rgb,
+        nodes)`` map in turn, left on the device.
 
-        With the device lattice, a map of an already checked cloud size runs
-        :meth:`map_fused` without a synchronisation; the first map of a size
-        adds one read of the vertex count, growing the bucket (and running
-        again) while the count exceeds 80% of it.
+        The finished maps' vertex counts are drained once, before the first
+        map. With the device lattice, a map of an already checked cloud size
+        then runs :meth:`map_fused` without a synchronisation; the first map
+        of a size adds one read of the vertex count, growing the bucket (and
+        running again) while the count exceeds 80% of it.
         """
         # Drain before the gate: an overflow seen here clears the checked
-        # sizes, and this map must then take the synchronising branch.
+        # sizes, and the maps must then take the synchronising branch.
         self._drain_overflow_flags()
+        return [self._map_on_device(*m) for m in maps]
+
+    def _map_on_device(
+        self, cloud_points, cloud_rgb, nodes: Sequence[MapNodeFrames]
+    ) -> List[torch.Tensor]:
         dev = self.device
         points = torch.as_tensor(cloud_points, dtype=torch.float32, device=dev)
         if not self.crf.use_dense_crf:
@@ -460,6 +467,13 @@ class LocalMapPipeline:
             self._m_checked.add(n)
         self._pending_m.append(_VertexCountProbe(self._m_bucket, m))
         return labels
+
+    def run_device(
+        self, cloud_points, cloud_rgb, nodes: Sequence[MapNodeFrames]
+    ) -> List[torch.Tensor]:
+        """Fusion, smoothing and labels for one map, left on the device
+        (:meth:`run_device_maps` on that map)."""
+        return self.run_device_maps([(cloud_points, cloud_rgb, nodes)])[0]
 
     def run(
         self, cloud_points, cloud_rgb, nodes: Sequence[MapNodeFrames]

@@ -21,7 +21,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .local_map import LocalMapPipeline, MapNodeFrames, _VertexCountProbe
+from .local_map import LocalMapPipeline, MapNodeFrames
 from .single_frame import SingleFramePipeline
 
 
@@ -47,11 +47,11 @@ def pack_poses(projector, poses: Sequence[np.ndarray]) -> np.ndarray:
 class StreamingPipeline:
     """Drive a frame batch and its maps with the two pipelines' configs.
 
-    ``map_pipeline`` must have a validated vertex bucket for the cloud size
-    (run one map through ``run_device`` first). Maps here run without a
-    synchronisation; their vertex counts go to the map pipeline's
-    non-blocking overflow drain (an overflowing map is labelled all Unknown
-    on the device, and the bucket grows for the following maps).
+    A batch's maps run through ``LocalMapPipeline.run_device_maps``, which
+    owns the vertex bucket: the first map of a cloud size reads its vertex
+    count once, later maps of that size run without a synchronisation, and
+    an overflowing map is labelled all Unknown on the device while the
+    bucket grows for the following maps.
     """
 
     def __init__(
@@ -87,36 +87,23 @@ class StreamingPipeline:
         fp, mp = self.frames, self.maps
         dev = mp.device
         b = int(rgb_stack.shape[0])
-        n = int(clouds.shape[1])
         maps_per_batch = b // self.map_every
         if maps_per_batch != int(clouds.shape[0]):
             raise ValueError(
                 f"{int(clouds.shape[0])} clouds for {maps_per_batch} maps"
             )
-        if n not in mp._m_checked:
-            raise ValueError(
-                f"vertex bucket not validated for cloud size {n}; run one "
-                "map through LocalMapPipeline first"
-            )
-        mp._drain_overflow_flags()
         results = fp.run_batch_stacked(rgb_stack, depth_stack, kinv, rot, trans)
         clouds = torch.as_tensor(clouds, dtype=torch.float32, device=dev)
         cloud_rgb = torch.as_tensor(cloud_rgb, dtype=torch.float32, device=dev)
         pose_packed = torch.as_tensor(pose_packed, dtype=torch.float32,
                                       device=dev)
-        map_labels = []
-        for m in range(maps_per_batch):
-            # One camera: each node's posteriors are its keyframe's, still
-            # on the device.
-            nodes = [
-                MapNodeFrames(pose=pose_packed[m, k],
-                              posteriors=[results[m * self.map_every + k].posteriors])
-                for k in range(self.map_every)
-            ]
-            labels, count = mp.map_fused(
-                clouds[m], cloud_rgb[m] if cloud_rgb.ndim == 3 else cloud_rgb,
-                nodes, mp._m_bucket,
-            )
-            map_labels.append(labels)
-            mp._pending_m.append(_VertexCountProbe(mp._m_bucket, count))
-        return [r.labels for r in results], map_labels
+        # One camera: each node's posteriors are its keyframe's, still on the
+        # device.
+        maps = [
+            (clouds[m], cloud_rgb[m] if cloud_rgb.ndim == 3 else cloud_rgb,
+             [MapNodeFrames(pose=pose_packed[m, k],
+                            posteriors=[results[m * self.map_every + k].posteriors])
+              for k in range(self.map_every)])
+            for m in range(maps_per_batch)
+        ]
+        return [r.labels for r in results], mp.run_device_maps(maps)

@@ -69,6 +69,7 @@ from ..ops.feature_rows import (
 from ..ops.forest_staged_cuda import find_leaves_staged_rows, staged_features
 from ..utils.calibration import Calibration
 from . import card_description, median_ms
+from .make_bench_forest import make_depth  # VGA depth in mm with 2% holes
 
 FIXTURE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -76,20 +77,6 @@ FIXTURE = os.path.join(
 )
 NUM_FEATURES = 366
 H, W, STRIDE = 480, 640, 2  # the real-feature frame
-
-
-def make_depth(r: np.random.Generator) -> np.ndarray:
-    """VGA depth in mm with 2% holes (``scripts/exp_descent_real.py``)."""
-    ys, xs = np.mgrid[0:H, 0:W]
-    depth = (3000.0 + 1500.0 * np.sin(xs / W * np.pi * r.uniform(0.5, 2.0))
-             + 1000.0 * (ys / H) * r.uniform(0.5, 3.0))
-    for _ in range(6):
-        y0, x0 = r.integers(0, H - 80), r.integers(0, W - 120)
-        bh, bw = r.integers(60, 180), r.integers(80, 240)
-        depth[y0:y0 + bh, x0:x0 + bw] = r.uniform(700, 2500)
-    depth += r.normal(0, 15, (H, W))
-    depth[r.random((H, W)) < 0.02] = 0
-    return np.clip(depth, 0, 15500).astype(np.uint16)
 
 
 def make_rows(kind: str, rows_kind: str, mode: str, dev: torch.device):

@@ -20,7 +20,7 @@ only the stage's own work is timed and traced. For each stage, on the card:
     device activities and the top device operations per call, from one
     ``torch.profiler`` window over K1 calls. Every window runs after every
     wall reading of the script, since a profiler window slows the launches
-    timed after it in its process (``bench.py``'s ``trace_cell``);
+    timed after it in its process;
 (c) the idle share, ``1 - busy / wall``.
 
 With ``--device cpu`` (the tests) the kernels' plain versions run, (a) is

@@ -4,9 +4,8 @@ The least time the card could take for a kernel's work: the larger of the
 bytes it must move (each input read once, each output written once; for a
 descent, only what this data's paths read) over the memory rate, and its
 32-bit instructions on the busiest issue pipe over that pipe's rate.
-``chip_smoke.py`` and the port's bench
-(``rovinasemanticsegmentation_tpu_torch/bench.py``) count the same bytes and
-instructions through these functions.
+``chip_smoke.py`` counts its kernels' bytes and instructions through these
+functions; ``port_bench/roofline.py`` is the benchmark's frozen copy.
 """
 
 from __future__ import annotations

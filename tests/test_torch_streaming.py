@@ -113,11 +113,32 @@ def _validate(fixture, fp, mp):
     mp.flush()
 
 
-def _run_staged(fixture, stream, proj):
+def _run_staged(fixture, stream, proj, batch=BATCH):
+    """``run_staged`` on the fixture's first ``batch`` keyframes."""
     _, _, stacks, clouds, crgb = fixture
-    poses = pack_poses(proj, [np.eye(4)] * MAP_EVERY)
-    return stream.run_staged(*stacks, clouds, crgb,
-                             np.stack([poses] * (BATCH // MAP_EVERY)))
+    maps = batch // stream.map_every
+    poses = pack_poses(proj, [np.eye(4)] * stream.map_every)
+    return stream.run_staged(*[a[:batch] for a in stacks], clouds[:maps], crgb,
+                             np.stack([poses] * maps))
+
+
+def _separate_paths(fixture, fp, mp, batch=BATCH, map_every=MAP_EVERY):
+    """The port's frame batch, then one ``run_device`` per map: -> (frame
+    labels per frame, map labels per map)."""
+    _, _, stacks, clouds, crgb = fixture
+    results = fp.run_batch_stacked(*[a[:batch] for a in stacks])
+    maps = []
+    for m in range(batch // map_every):
+        nodes = [tlm.MapNodeFrames(pose=np.eye(4), posteriors=[r.posteriors])
+                 for r in results[m * map_every : (m + 1) * map_every]]
+        maps.append(mp.run_device(clouds[m], crgb, nodes))
+    return [r.labels for r in results], maps
+
+
+def _assert_labels_equal(got, want):
+    for a, b in zip(got, want, strict=True):
+        for la, lb in zip(a, b, strict=True):
+            assert torch.equal(la, lb)
 
 
 def test_run_staged_matches_jax_separate_paths(fixture, jax_separate):
@@ -141,36 +162,84 @@ def test_run_staged_matches_jax_separate_paths(fixture, jax_separate):
     mp.flush()
 
 
-def test_run_staged_equals_the_port_separate_paths(fixture):
+@pytest.mark.parametrize("map_every", [MAP_EVERY, BATCH])
+def test_run_staged_equals_the_port_separate_paths(fixture, map_every):
     """The step is the two pipelines' own calls: the port's frame batch and
-    ``run_device`` maps give the same labels."""
+    ``run_device`` maps give the same labels, with two maps a batch and with
+    one."""
     fp, mp, proj = _port(fixture)
     _validate(fixture, fp, mp)
-    frames, maps = _run_staged(fixture, StreamingPipeline(fp, mp, MAP_EVERY),
+    frames, maps = _run_staged(fixture, StreamingPipeline(fp, mp, map_every),
                                proj)
-    _, _, stacks, clouds, crgb = fixture
-    results = fp.run_batch_stacked(*stacks)
-    for m in range(BATCH // MAP_EVERY):
-        nodes = [tlm.MapNodeFrames(pose=np.eye(4), posteriors=[r.posteriors])
-                 for r in results[m * MAP_EVERY : (m + 1) * MAP_EVERY]]
-        for a, b in zip(maps[m], mp.run_device(clouds[m], crgb, nodes)):
-            assert torch.equal(a, b)
-    for a, r in zip(frames, results):
-        for la, lb in zip(a, r.labels):
-            assert torch.equal(la, lb)
+    assert len(maps) == BATCH // map_every
+    want_frames, want_maps = _separate_paths(fixture, fp, mp,
+                                             map_every=map_every)
+    _assert_labels_equal(maps, want_maps)
+    _assert_labels_equal(frames, want_frames)
     mp.flush()
 
 
-def test_unvalidated_bucket_raises(fixture):
+def test_run_staged_checks_the_cloud_count(fixture):
     fp, mp, proj = _port(fixture)
-    with pytest.raises(ValueError, match="vertex bucket not validated"):
-        _run_staged(fixture, StreamingPipeline(fp, mp, MAP_EVERY), proj)
     _, _, stacks, clouds, crgb = fixture
     _validate(fixture, fp, mp)
     with pytest.raises(ValueError, match="3 clouds for 2 maps"):
         StreamingPipeline(fp, mp, MAP_EVERY).run_staged(
             *stacks, np.concatenate([clouds, clouds[:1]]), crgb,
             np.zeros((3, MAP_EVERY, 1, 3, 4), np.float32))
+
+
+def test_run_staged_validates_an_unchecked_size(fixture):
+    """On a fresh pipeline the first map of the cloud size reads its vertex
+    count once and marks the size checked, as ``run_device`` does."""
+    fp, mp, proj = _port(fixture)
+    assert not mp._m_checked
+    frames, maps = _run_staged(fixture, StreamingPipeline(fp, mp, MAP_EVERY),
+                               proj)
+    assert mp._m_checked == {N_POINTS}
+    want_frames, want_maps = _separate_paths(fixture, fp, mp)
+    _assert_labels_equal(maps, want_maps)
+    _assert_labels_equal(frames, want_frames)
+    mp.flush()
+    assert mp.overflow_maps == 0
+
+
+def test_run_staged_recovers_after_an_overflow(fixture):
+    """A 16-slot bucket on a checked size: the batch's maps are labelled all
+    Unknown on the device; once their counts are read the bucket grows, and
+    the following batches synchronise again and recover."""
+    fp, mp, proj = _port(fixture)
+    stream = StreamingPipeline(fp, mp, MAP_EVERY)
+    mp._m_bucket = 16
+    mp._m_checked.add(N_POINTS)
+    _, poisoned = _run_staged(fixture, stream, proj)
+    for labels in poisoned:
+        assert (labels[0] == 2).all() and (labels[1] == 3).all()
+    mp.flush()
+    assert mp.overflow_maps == BATCH // MAP_EVERY
+    assert mp._m_bucket > 16 and not mp._m_checked
+    ref_fp, ref_mp, _ = _port(fixture)
+    want_frames, want_maps = _separate_paths(fixture, ref_fp, ref_mp)
+    for _ in range(2):
+        frames, maps = _run_staged(fixture, stream, proj)
+        _assert_labels_equal(maps, want_maps)
+        _assert_labels_equal(frames, want_frames)
+    mp.flush()
+    ref_mp.flush()
+    assert mp.overflow_maps == BATCH // MAP_EVERY
+    assert mp._m_checked == {N_POINTS}
+
+
+def test_overflowing_maps_are_counted(fixture):
+    mp = _port(fixture)[1]
+    assert mp.overflow_maps == 0
+    bucket = mp._m_bucket
+    mp._pending_m += [tlm._VertexCountProbe(bucket, torch.tensor(bucket + 1)),
+                      tlm._VertexCountProbe(bucket, torch.tensor(bucket - 1)),
+                      tlm._VertexCountProbe(bucket, torch.tensor(2 * bucket))]
+    mp.flush()
+    assert mp.overflow_maps == 2
+    assert mp._m_bucket >= 2.5 * bucket
 
 
 def _host_reads(monkeypatch):
