@@ -69,6 +69,14 @@ or ALU) over that pipe's rate.
    windows each kernel's, the normalisation's and the activities, the plain
    mean field's time and activities, and ``port_bench/roofline.py``'s
    mean-field bound; phase 4 must have counted one call a map;
+4c. the lattice-build kernels (``csrc/lattice_build.cu``) against the plain
+   PyTorch build on phase 4's map 0 (30000 points, d = 6, 16384 slots): all
+   twelve results of ``_build_device`` bit-equal to the plain build's on the
+   card and on the CPU, one count a build; the build's device time alone
+   (CUDA events, 50 builds), a ``build_lattice_device`` call's, each
+   kernel's time and the activities a build from a profiler window, the
+   plain build's, and ``port_bench/roofline.py``'s ``lattice_build`` bound;
+   phase 4 must have counted one build a map;
 5. reference: one VGA keyframe and one 30000-point map through the same
    pipelines on the CPU (plain versions) and on the card, with the dense CRF
    off and on, must agree on >= 99.9% of the map labels; on the card the
@@ -90,8 +98,8 @@ or ALU) over that pipe's rate.
    keyframes and both maps (dense CRF on, 10 iterations) after one
    validating ``run_device`` map; frame and map labels must equal the
    separate paths' (``run_batch_stacked``, then ``run_device`` per map) in
-   the same call, kernels A and B must launch and the normals kernels once
-   a keyframe; ms per batch and per
+   the same call, kernels A and B must launch, the normals kernels once
+   a keyframe and the lattice-build kernels once a CRF map; ms per batch and per
    keyframe of both;
 9. the evaluation CLI: ``cli.test_multi`` of the port over a synthetic
    4-image VGA dataset (the fixture forest as its shared model) on the card
@@ -432,6 +440,7 @@ def run(card: str) -> dict:
         unpack_rows,
     )
     from rovinasemanticsegmentation_tpu_torch.ops import forest_staged_cuda
+    from rovinasemanticsegmentation_tpu_torch.ops import lattice_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import mean_field_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import normals_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import patches_cuda
@@ -505,7 +514,7 @@ def run(card: str) -> dict:
     counters = (patches_cuda.launches, patches_cuda.pack_launches,
                 forest_cuda.launches, forest_staged_cuda.launches,
                 patches_separable_cuda.launches, normals_cuda.launches,
-                mean_field_cuda.launches)
+                mean_field_cuda.launches, lattice_cuda.launches)
 
     def reset_counts():
         for counter in counters:
@@ -961,6 +970,7 @@ def run(card: str) -> dict:
             "forest_descent": forest_cuda.launches.value,
             "normals": normals_cuda.launches.value,
             "mean_field": mean_field_cuda.launches.value,
+            "lattice_build": lattice_cuda.launches.value,
         }
         base = server.address + "/semantic_segmentation"
         ids = http_json(base + "/local_map_ids")["local_map_ids"]
@@ -996,6 +1006,8 @@ def run(card: str) -> dict:
           f"{launches['normals']} of the {N_KEYFRAMES} keyframes served")
     check(launches["mean_field"] == len(maps), f"the mean-field kernels took "
           f"{launches['mean_field']} of the {len(maps)} maps served")
+    check(launches["lattice_build"] == len(maps), f"the lattice-build kernels "
+          f"took {launches['lattice_build']} of the {len(maps)} maps served")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched while serving")
         if name in results:
@@ -1015,6 +1027,10 @@ def run(card: str) -> dict:
     results["mean_field"] = mean_field_phase(card, dev, frames, maps, calib,
                                              forest_np)
     results["mean_field"]["launches"] = launches["mean_field"]
+
+    # ---- phase 4c: the lattice-build kernels vs the plain build
+    results["lattice_build"] = lattice_build_phase(card, dev, maps)
+    results["lattice_build"]["launches"] = launches["lattice_build"]
 
     # ---- phase 5: the card against the CPU (plain versions) on one frame
     rgb, depth = frames[0]
@@ -1231,7 +1247,8 @@ def run(card: str) -> dict:
     got8 = staged()
     launches8 = {"patches": patches_cuda.launches.value,
                  "forest_descent": forest_cuda.launches.value,
-                 "normals": normals_cuda.launches.value}
+                 "normals": normals_cuda.launches.value,
+                 "lattice_build": lattice_cuda.launches.value}
     torch.cuda.synchronize()
     mp8.flush()
     for f, (a, w) in enumerate(zip(got8[0], want8[0])):
@@ -1246,6 +1263,9 @@ def run(card: str) -> dict:
         check(n > 0, f"kernel {name} was not launched by the streaming step")
     check(launches8["normals"] == b, f"the normals kernels took "
           f"{launches8['normals']} of the streaming step's {b} keyframes")
+    check(launches8["lattice_build"] == n_maps, f"the lattice-build kernels "
+          f"took {launches8['lattice_build']} of the streaming step's {n_maps} "
+          "CRF maps")
 
     runs8 = {staged: [], separate: []}
     for _ in range(3):  # interleaved, so that drift of the host hits both
@@ -1451,6 +1471,15 @@ def run(card: str) -> dict:
                 "replaces": None,  # XLA ops in the JAX package: no kernel
                 "library_ms": None,
                 **results["mean_field"],
+            },
+            {
+                "name": "lattice_build",
+                "route": "cuda",
+                "source": "rovinasemanticsegmentation_tpu_torch/csrc/"
+                          "lattice_build.cu",
+                "replaces": None,  # XLA ops in the JAX package: no kernel
+                "library_ms": None,
+                **results["lattice_build"],
             },
         ],
     }
@@ -1693,6 +1722,100 @@ def mean_field_phase(card: str, dev, frames, maps, calib, forest_np) -> dict:
     return dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, per_kernel_ms=per_kernel,
                 norm_device_ms=norm_ms, device_ms=dev_ms, activities=acts,
+                plain_device_ms=plain_dev_ms, plain_activities=plain_acts,
+                bound_ms=bound_ms, bound_by="bytes")
+
+
+LATTICE_KERNELS = ("lb_embed_insert", "lb_key_tiles", "lb_merge",
+                   "lb_key_ranks", "lb_row_ranks", "lb_radix_pass", "lb_finish")
+
+
+def lattice_build_phase(card: str, dev, maps) -> dict:
+    """Phase 4c: the lattice-build kernels against the plain PyTorch build
+    on phase 4's map 0 (30000 points, d = 6, the map path's 16384 slots):
+    all twelve results bit-equal to the plain build on the card and on the
+    CPU, one count a build; the kernels' device time alone (CUDA events, 50
+    builds), a ``build_lattice_device`` call's, from profiler windows each
+    kernel's time and the activities a build, the plain build's time and
+    activities, and ``port_bench/roofline.py``'s ``lattice_build`` bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from port_bench.roofline import map_stages
+    from rovinasemanticsegmentation_tpu_torch.models import lattice as L
+    from rovinasemanticsegmentation_tpu_torch.ops import lattice_cuda
+    from rovinasemanticsegmentation_tpu_torch.pipelines.local_map import (
+        crf_feats,
+    )
+
+    bucket = 1 << 14
+    names = ("sorted_points", "sorted_weights", "seg_starts", "seg_ends",
+             "offsets_t", "barycentric_t", "blur_n1", "blur_n2", "m",
+             "pos_sorted", "rem0", "rank")
+    pts, cols = maps[0]
+    feats = crf_feats(torch.from_numpy(pts).to(dev),
+                      torch.from_numpy(cols).to(dev), 0.5, 4.0)
+    n, d = feats.shape
+    scale = L._embedding_scale(d).astype(np.float32)
+    before = lattice_cuda.launches.value
+    got = L._build_device(feats, bucket)
+    torch.cuda.synchronize()
+    check(lattice_cuda.launches.value == before + 1,
+          "lattice-build kernels: the build was not counted once")
+    plain = L._build_device_plain(feats, bucket)
+    cpu = L._build_device_plain(feats.cpu(), bucket)
+    for name, g, p, c in zip(names, got, plain, cpu):
+        check(g.dtype == p.dtype and g.shape == p.shape and torch.equal(g, p),
+              f"lattice-build kernels: {name} differs from the plain build's "
+              "on the card")
+        check(torch.equal(g.cpu(), c), f"lattice-build kernels: {name} "
+              "differs from the plain build's on the CPU")
+    m = int(got[8])
+    check(m <= bucket, f"map 0: {m} vertices overflow the bucket {bucket}")
+
+    def launch():
+        lattice_cuda.build(feats, bucket, scale)
+
+    # ~100 us of host a build (allocations and the C call's launches)
+    ms = time_launch(launch, 50, spin_cycles=400_000)
+    wrapper_ms = time_cuda(lambda: L.build_lattice_device(feats, bucket), 50)
+    plain_ms = time_cuda(lambda: L._build_device_plain(feats, bucket), 10)
+
+    def profiled(fn, reps=5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type.name != "CPU"]
+        per_kernel = {}
+        for e in device:
+            for name in LATTICE_KERNELS:
+                if name in e.name:
+                    per_kernel[name] = (per_kernel.get(name, 0.0)
+                                        + e.time_range.elapsed_us() / 1000 / reps)
+        return (sum(e.time_range.elapsed_us() for e in device) / 1000 / reps,
+                len(device) / reps, per_kernel)
+
+    dev_ms, acts, per_kernel = profiled(launch)
+    check(set(per_kernel) == set(LATTICE_KERNELS),
+          f"lattice-build kernels in the profile: {sorted(per_kernel)}")
+    plain_dev_ms, plain_acts, _ = profiled(
+        lambda: L._build_device_plain(feats, bucket), 2)
+    bound_ms = 1e3 * dict(map_stages(n, MAP_EVERY, 17, d, bucket, 10))[
+        "lattice_build"]
+    kernels = ", ".join(f"{k} {v:.4f} ms" for k, v in per_kernel.items())
+    print(f"phase 4c: lattice-build kernels == plain build on the card and "
+          f"the CPU, all 12 results ({n} points, d = {d}, {m} vertices, "
+          f"bucket {bucket}); device time alone {ms:.4f} ms a build "
+          f"({kernels} in a profile: {dev_ms:.4f} ms in {acts:.0f} "
+          f"activities); build_lattice_device {wrapper_ms:.4f} ms a call; "
+          f"plain {plain_ms:.4f} ms a call, {plain_dev_ms:.4f} device ms in "
+          f"{plain_acts:.0f} activities; bound (port_bench/roofline.py's "
+          f"lattice_build) {bound_ms:.6f} ms, {bound_ms / ms:.3%} of it; "
+          f"lattice_cuda.launches {lattice_cuda.launches.value} ({card})")
+    return dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                per_kernel_ms=per_kernel, device_ms=dev_ms, activities=acts,
                 plain_device_ms=plain_dev_ms, plain_activities=plain_acts,
                 bound_ms=bound_ms, bound_by="bytes")
 

@@ -11,7 +11,10 @@ same lattice:
 - :func:`build_lattice_device` on the tensors' device with static shapes: a
   lexicographic sort of the packed vertex keys, run detection, and one
   sort-merge of every blur-neighbour query against the unique keys. Vertex
-  ids are lexicographic, so it equals the NumPy build index for index.
+  ids are lexicographic, so it equals the NumPy build index for index. On
+  a CUDA tensor the same results, bit for bit, come from the kernels of
+  ``csrc/lattice_build.cu`` (a hash-table dedup, a sort of the distinct
+  keys, direct neighbour lookups; ``ops/lattice_cuda.py``).
 
 The filter (:func:`lattice_filter_t`) works in the transposed ``[C, N]``
 layout on the build's sorted splat stream: the splat is a float32 prefix sum
@@ -40,6 +43,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..ops import lattice_cuda
 
 _SENTINEL = 0x7FFFFFFF  # packed key of a padded vertex: sorts after every real key
 
@@ -531,7 +536,19 @@ def build_lattice_device(features: torch.Tensor, m_bucket: int = 1 << 14):
 
 def _build_device(features: torch.Tensor, m_bucket: int):
     """:func:`build_lattice_device`'s nine results, then the stream rows'
-    flat (point, corner) indices, ``rem0`` and ``rank``."""
+    flat (point, corner) indices, ``rem0`` and ``rank``: on a CUDA tensor
+    by ``csrc/lattice_build.cu`` (``ops/lattice_cuda.py``, which raises
+    beyond its limits), elsewhere by :func:`_build_device_plain`. Both give
+    the same bits."""
+    if features.device.type == "cuda":
+        scale = _embedding_scale(features.shape[1]).astype(np.float32)
+        return lattice_cuda.build(features.float(), m_bucket, scale)
+    return _build_device_plain(features, m_bucket)
+
+
+def _build_device_plain(features: torch.Tensor, m_bucket: int):
+    """:func:`_build_device` in PyTorch ops: the key sort, run detection
+    and neighbour sort-merge above."""
     n, d = features.shape
     s = n * (d + 1)
     spad = -(-s // 128) * 128

@@ -13,16 +13,19 @@ CRF features ``[xyz * 0.5 ; rgb * 4]`` (d = 6) of the bench's map
   embed   ``_embed_simplex``: elevation, rounding, rank, barycentric weights
   dedup   + the key pack and the vertex dedup by a key sort
           (``_pack_keys16``, ``_dedup_sorted``)
-  full    ``build_lattice_device``: + the blur neighbours
+  full    the plain build (``_build_device_plain``): + the blur neighbours
           (``_blur_neighbors_sort``)
+  kernels on the card only: ``build_lattice_device``, which takes the
+          lattice-build kernels there (``csrc/lattice_build.cu``)
 
 The summary gives the phases as differences of the wall slopes (dedup -
-embed, full - dedup), the vertex count m and the bucket
-(``stage_timing.MAP_BUCKET``, the port's; the JAX script's is twice that).
-Checks: the stages composed equal ``build_lattice_device`` bit for bit, and
-m fits the bucket. The JAX script's ``hash`` variant (retired with
-``_blur_neighbors_hash``) and its tuning record are not ported. Timing
-method: ``stage_timing``.
+embed, full - dedup), the kernels' speed-up over the plain build on the
+card, the vertex count m and the bucket (``stage_timing.MAP_BUCKET``, the
+port's; the JAX script's is twice that). Checks: the stages composed (the
+plain build) equal ``build_lattice_device`` bit for bit, and m fits the
+bucket. The JAX script's ``hash`` variant (retired with
+``_blur_neighbors_hash``; on the card the kernels' table is its successor)
+and its tuning record are not ported. Timing method: ``stage_timing``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from ..models.lattice import (
     _blur_neighbors_sort,
+    _build_device_plain,
     _dedup_sorted,
     _embed_simplex,
     _pack_keys16,
@@ -76,12 +80,16 @@ def stages(features: torch.Tensor, m_bucket: int) -> List[Stage]:
     def perturbed(i):
         return (features + i * 1e-5,)
 
-    return [
+    out = [
         Stage("embed", perturbed, _embed_simplex, (K1, K2)),
         Stage("dedup", perturbed, lambda f: dedup(f, m_bucket), (K1, K2)),
-        Stage("full", perturbed, lambda f: build_lattice_device(f, m_bucket),
-              (K1, K2)),
+        Stage("full", perturbed,
+              lambda f: _build_device_plain(f, m_bucket)[:9], (K1, K2)),
     ]
+    if features.is_cuda:
+        out.append(Stage("kernels", perturbed,
+                         lambda f: build_lattice_device(f, m_bucket), (K1, K2)))
+    return out
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -103,6 +111,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                         args.reps, dev)
         phases = {"dedup - embed": wall(lines, "dedup") - wall(lines, "embed"),
                   "full - dedup": wall(lines, "full") - wall(lines, "dedup")}
+        if features.is_cuda:
+            phases["full / kernels"] = wall(lines, "full") / wall(lines, "kernels")
     return finish("exp_lattice", lines, checks, dev, points=args.points, m=m,
                   bucket=MAP_BUCKET, phase_wall_ms=phases)
 

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, the dense CRF's
-lattice build and mean field against the CPU's, and the run-to-run
-equality of the unary accumulation and of ``DenseCRF.map``, on the card.
+mean field against the CPU's (its lattice build:
+``test_torch_lattice_cuda.py``), and the run-to-run equality of the unary
+accumulation and of ``DenseCRF.map``, on the card.
 
 Marked ``cuda``: each test skips when ``torch.cuda.is_available()`` is
 false. On a machine with an NVIDIA GPU (which need not have JAX; the
@@ -374,19 +375,6 @@ def _room_features(n, seed):
     return torch.from_numpy(
         np.concatenate([pts * 0.5, rgb * 4.0], axis=1).astype(np.float32)
     )
-
-
-@pytest.mark.parametrize("n,bucket", [(30000, 1 << 14), (2000, 1 << 9)])
-def test_device_lattice_build_equals_cpu(dev, n, bucket):
-    """Every output equal, including an overflowing build (2000 points in
-    512 slots)."""
-    feats = _room_features(n, n)
-    got = build_lattice_device(feats.to(dev), bucket)
-    want = build_lattice_device(feats, bucket)
-    assert (int(want[-1]) > bucket) == (n == 2000)
-    for g, w in zip(got, want):
-        assert g.device.type == "cuda"
-        assert torch.equal(g.cpu(), w)
 
 
 def test_mean_field_on_card_within_contract(dev):
