@@ -1,6 +1,9 @@
 """The published three-camera rig on the card: a batch of VGA frames with
 one calibration each through kernels A and B and the normals kernels, and
-the map fusion over every (node, camera) view, each held to the plain path.
+the map fusion over every (node, camera) view, each held to the plain path;
+``Segmenter`` with the rig and the dense CRF on, and the streaming step in
+whole rig nodes, each held to the benchmark's plain reference; and the
+streaming step with one camera, held to its own calls as before.
 
 Marked ``cuda``: each test skips when ``torch.cuda.is_available()`` is
 false. On a machine with an NVIDIA GPU:
@@ -150,3 +153,109 @@ def test_rig_fusion_on_card(dev):
                           K, [(r, t) for _, r, t in RIG], CONF["depth_min"], 1.0e9, H, W)
     torch.testing.assert_close(torch.cat(u_card, 1), ref.cpu(), rtol=2.0**-21, atol=0.0)
     assert (torch.cat(u_card, 1) != 0).any(dim=1).float().mean() > 0.3
+
+
+SEED = 2**31 + 22  # more than 32 signed bits hold
+
+
+def _spec(workload, config=None, **traffic):
+    """A benchmark cell's spec, with another configuration file and traffic
+    settings where given."""
+    from port_bench import harness
+
+    spec = harness.load_spec(workload)
+    if config is not None:
+        with open(os.path.join(ROOT, "port_bench", "configs", config + ".json")) as f:
+            spec.config = json.load(f)
+    spec.traffic = dict(spec.traffic, **traffic)
+    return spec
+
+
+def _cell(spec, device):
+    from port_bench import harness
+
+    return harness.load_module("drivers", spec.traffic["driver"]).Cell(spec, SEED, str(device))
+
+
+def test_rig_with_dense_crf_serves_the_reference(dev):
+    """``Segmenter`` with the three cameras and the dense CRF on, driven as
+    the online rig cell drives it (VGA nodes at 25/s, maps of 30000 points
+    from 15 views): every sampled served map's labels equal the plain
+    reference's (``reference/rig.py`` with ``lattice.py::crf_labels``), and
+    every map is served."""
+    spec = _spec("online_3cam_nocrf", config="rovina_3cam_crf10", check_maps=4)
+    assert spec.config["use_dense_crf"] and spec.config["cameras"] == 3
+    cell = _cell(spec, dev)
+    info = cell.window(2.0)["info"]
+    cell.release()
+    assert info["maps"] >= 8 and info["counters"]["fusion.views"] == 3 * info["nodes"]
+    assert cell.check() == {"map_label_mismatch": 0.0, "maps_never_served": 0}
+
+
+def test_stream_rig_step_equals_the_reference(dev):
+    """``run_staged`` with 10 rig nodes at VGA a call (30 frames in one
+    descent, 2 maps of 15 views and 30000 points, the dense CRF on), as the
+    cell ``stream_3cam_crf10_b10`` drives it: the sampled batches' frame and
+    map labels equal the plain reference's, and each call launches one
+    descent and counts its 30 frames and 30 views."""
+    spec = _spec("stream_3cam_crf10_b10", check_batches=2)
+    cell = _cell(spec, dev)
+    info = cell.window(1.0)["info"]
+    cell.release()
+    batches = info["batches"]
+    assert batches >= 2 and info["frames"] == 30 * batches
+    assert info["counters"] == {"streaming.frames": 30 * batches,
+                                "forest_cuda.launches": batches,
+                                "fusion.views": 30 * batches}
+    assert cell.check() == {"frame_label_mismatch": 0.0, "map_label_mismatch": 0.0}
+
+
+def test_one_camera_stream_step_is_unchanged(dev):
+    """With one camera, ``run_staged`` is the frame batch and the maps' own
+    calls, as before whole nodes: 10 VGA keyframes and 2 maps with the dense
+    CRF on give labels bit-equal to ``run_batch_stacked`` and one
+    ``run_device`` a map, in one descent and a patches and a normals launch
+    a frame."""
+    from rovinasemanticsegmentation_tpu_torch.pipelines.streaming import (
+        StreamingPipeline, pack_poses)
+
+    with open(os.path.join(ROOT, "port_bench", "configs", "rovina_crf10.json")) as f:
+        conf = json.load(f)
+    calib = Calibration(intrinsic=K, rotation=np.eye(3), translation=np.zeros(3))
+    frames, rng = gen.make_pool(SEED, 10, H, W)
+    cloud, cloud_rgb = gen.make_cloud(rng, frames, float(K[0, 0]), H, W, 5, 30000)
+    fp = _pipeline(dev)
+    proj = MultiProjector.from_calibrations([calib], H, W, min_distance=conf["depth_min"],
+                                            max_distance=conf["depth_max"])
+    mp = local_map.LocalMapPipeline(proj, COUNTS, UNKNOWN, dev, crf=local_map.CrfParams(
+        use_dense_crf=True, xyz_kernel=conf["dcrf_xyz_kernel"],
+        rgb_kernel=conf["dcrf_rgb_kernel"], kernel_weight=conf["dcrf_kernel_weight"],
+        iterations=conf["dcrf_iterations"]))
+    rgb = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    depth = torch.from_numpy(np.stack([f[1] for f in frames]).astype(np.int32)).to(dev)
+    kinv, rot, trans = (torch.from_numpy(np.tile(np.asarray(a, np.float32)[None],
+                                                 (10,) + (1,) * np.ndim(a))).to(dev)
+                        for a in (calib.intrinsic_inverse, calib.rotation, calib.translation))
+    clouds = torch.from_numpy(np.stack([cloud, cloud + np.float32(0.001)])).to(dev)
+    colours = torch.from_numpy(cloud_rgb).to(dev)
+    poses = torch.from_numpy(np.stack([pack_poses(proj, [np.eye(4)] * 5)] * 2)).to(dev)
+    results = fp.run_batch_stacked(rgb, depth, kinv, rot, trans)
+    want_maps = [mp.run_device(clouds[m], colours, [
+        local_map.MapNodeFrames(pose=poses[m, k], posteriors=[results[5 * m + k].posteriors])
+        for k in range(5)]) for m in range(2)]
+    before = (forest_cuda.launches.value, normals_cuda.launches.value,
+              patches_cuda.launches.value)
+    frames_got, maps_got = StreamingPipeline(fp, mp, 5).run_staged(
+        rgb, depth, kinv, rot, trans, clouds, colours, poses)
+    torch.cuda.synchronize(dev)
+    after = (forest_cuda.launches.value, normals_cuda.launches.value,
+             patches_cuda.launches.value)
+    mp.flush()
+    assert [a - b for a, b in zip(after, before)] == [1, 10, 10]
+    for got, want in zip(frames_got, results, strict=True):
+        for a, b in zip(got, want.labels, strict=True):
+            assert torch.equal(a, b)
+    for got, want in zip(maps_got, want_maps, strict=True):
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b)
+    assert mp.overflow_maps == 0
