@@ -41,8 +41,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    device time per keyframe, the top kernels and the port's kernels; kernels
    A and B must run, and no float32 ``cat``, ``where`` or ``to`` over
    ``[P, 363]`` or ``[P, 366]`` features may run;
+3d. the resize+argmax kernel (``csrc/resize_argmax.cu``, one launch a frame)
+   against the plain ``posterior_maps`` on the card: posteriors and labels
+   bit-equal on the fixture forest's posteriors of phase 2's frame with the
+   offline (-1000) and online (0) fills, one count a frame; the launch timed
+   alone beside its byte floor, the wrapper and the plain version; in a
+   profiler window, with the launches queued behind a spin, the kernel's
+   device activities must equal its launch count, and the plain version's
+   activities are counted;
 
-Phases 2-3b time each kernel's launch alone (CUDA events around launches
+Phases 2-3b and 3d time each kernel's launch alone (CUDA events around launches
 whose inputs were prepared first, queued behind a spin kernel so that the
 card's time is measured and not the host's) beside its wrapper, and compute
 its bound from this run's inputs: the larger of the bytes it must move
@@ -57,8 +65,8 @@ or ALU) over that pipe's rate.
    lattice vertex count and vertex bucket are printed; all three query
    services are called, every label is checked to be in range, both layers
    must have points that are not Unknown, and the launch counts of A and B
-   must have risen during this phase, the normals kernels' by one a
-   keyframe and the mean-field kernels' by one a map;
+   must have risen during this phase, the normals and resize+argmax kernels'
+   by one a keyframe and the mean-field kernels' by one a map;
 4b. the mean-field kernels (``csrc/mean_field.cu``) against the plain mean
    field on phase 4's maps with their fused unaries (the first 5 keyframes'
    posteriors through ``fuse_unaries``), on a device lattice in the bucket:
@@ -445,6 +453,7 @@ def run(card: str) -> dict:
     from rovinasemanticsegmentation_tpu_torch.ops import normals_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import patches_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import patches_separable_cuda
+    from rovinasemanticsegmentation_tpu_torch.ops import resize_argmax_cuda
     from rovinasemanticsegmentation_tpu_torch.ops.patches import (
         extract_patches_plain,
         extract_patches_separable_into_plain,
@@ -514,7 +523,8 @@ def run(card: str) -> dict:
     counters = (patches_cuda.launches, patches_cuda.pack_launches,
                 forest_cuda.launches, forest_staged_cuda.launches,
                 patches_separable_cuda.launches, normals_cuda.launches,
-                mean_field_cuda.launches, lattice_cuda.launches)
+                mean_field_cuda.launches, lattice_cuda.launches,
+                resize_argmax_cuda.launches)
 
     def reset_counts():
         for counter in counters:
@@ -919,6 +929,10 @@ def run(card: str) -> dict:
         print(f"phase 3c: port kernel {name}: {k['us_per_keyframe']:.3f} us "
               f"per keyframe, {k['launches_per_batch']:.0f} per batch")
 
+    # ---- phase 3d: the resize+argmax kernel vs the plain posterior maps
+    results["resize_argmax"] = resize_argmax_phase(card, dev, forest_np,
+                                                   frames[0], calib)
+
     # ---- phase 4: serving through the HTTP services
     topics = ["/camera_front/rgb/image", "/camera_front/depth/image"]
     maps = []
@@ -971,6 +985,7 @@ def run(card: str) -> dict:
             "normals": normals_cuda.launches.value,
             "mean_field": mean_field_cuda.launches.value,
             "lattice_build": lattice_cuda.launches.value,
+            "resize_argmax": resize_argmax_cuda.launches.value,
         }
         base = server.address + "/semantic_segmentation"
         ids = http_json(base + "/local_map_ids")["local_map_ids"]
@@ -1004,6 +1019,9 @@ def run(card: str) -> dict:
         seg.stop()
     check(launches["normals"] == N_KEYFRAMES, f"the normals kernels took "
           f"{launches['normals']} of the {N_KEYFRAMES} keyframes served")
+    check(launches["resize_argmax"] == N_KEYFRAMES, f"the resize+argmax kernel "
+          f"took {launches['resize_argmax']} of the {N_KEYFRAMES} keyframes "
+          "served")
     check(launches["mean_field"] == len(maps), f"the mean-field kernels took "
           f"{launches['mean_field']} of the {len(maps)} maps served")
     check(launches["lattice_build"] == len(maps), f"the lattice-build kernels "
@@ -1248,7 +1266,8 @@ def run(card: str) -> dict:
     launches8 = {"patches": patches_cuda.launches.value,
                  "forest_descent": forest_cuda.launches.value,
                  "normals": normals_cuda.launches.value,
-                 "lattice_build": lattice_cuda.launches.value}
+                 "lattice_build": lattice_cuda.launches.value,
+                 "resize_argmax": resize_argmax_cuda.launches.value}
     torch.cuda.synchronize()
     mp8.flush()
     for f, (a, w) in enumerate(zip(got8[0], want8[0])):
@@ -1263,6 +1282,8 @@ def run(card: str) -> dict:
         check(n > 0, f"kernel {name} was not launched by the streaming step")
     check(launches8["normals"] == b, f"the normals kernels took "
           f"{launches8['normals']} of the streaming step's {b} keyframes")
+    check(launches8["resize_argmax"] == b, f"the resize+argmax kernel took "
+          f"{launches8['resize_argmax']} of the streaming step's {b} keyframes")
     check(launches8["lattice_build"] == n_maps, f"the lattice-build kernels "
           f"took {launches8['lattice_build']} of the streaming step's {n_maps} "
           "CRF maps")
@@ -1481,6 +1502,15 @@ def run(card: str) -> dict:
                 "library_ms": None,
                 **results["lattice_build"],
             },
+            {
+                "name": "resize_argmax",
+                "route": "cuda",
+                "source": "rovinasemanticsegmentation_tpu_torch/csrc/"
+                          "resize_argmax.cu",
+                "replaces": None,  # XLA ops in the JAX package: no kernel
+                "library_ms": None,
+                **results["resize_argmax"],
+            },
         ],
     }
 
@@ -1574,6 +1604,116 @@ def normals_phase(card: str, dev, depth, calib) -> dict:
                 per_kernel_ms=per_kernel, bound_ms=bound_ms,
                 bound_by="bytes" if floor_ms >= stage_ms else "operations",
                 bound_bytes=2 * integral_bytes, stage_bound_ms=stage_ms)
+
+
+def resize_argmax_phase(card: str, dev, forest_np, frame, calib) -> dict:
+    """Phase 3d: the resize+argmax kernel against the plain posterior maps on
+    the card, on the fixture forest's posteriors of one VGA keyframe. -> the
+    kernel's numbers at VGA, stride 2 (the frame path's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rovinasemanticsegmentation_tpu_torch.features.extractor import (
+        FeatureConfig,
+    )
+    from rovinasemanticsegmentation_tpu_torch.ops import resize_argmax_cuda
+    from rovinasemanticsegmentation_tpu_torch.pipelines.single_frame import (
+        SingleFramePipeline,
+        posterior_maps_plain,
+    )
+    from rovinasemanticsegmentation_tpu_torch.utils.roofline import bound
+
+    rgb, depth = frame
+    pipe = SingleFramePipeline(FeatureConfig(), forest_np, STRIDE, dev)
+    post, masks = pipe.stacked_posteriors(
+        rgb[None], depth[None], np.asarray(calib.intrinsic_inverse)[None],
+        np.eye(3)[None], np.zeros((1, 3)))
+    h, w = depth.shape
+    args = (post, masks[0], pipe.grid_shape(h, w), pipe.class_counts)
+    for fill in (-1000.0, 0.0):
+        launch, got_post, got_lbl = resize_argmax_cuda.launcher(*args, fill,
+                                                                h, w)
+        before = resize_argmax_cuda.launches.value
+        launch()
+        torch.cuda.synchronize()
+        check(resize_argmax_cuda.launches.value == before + 1,
+              "resize+argmax kernel: the frame was not counted once")
+        want_post, want_lbl = posterior_maps_plain(*args, fill, h, w)
+        for li, (a, b) in enumerate(zip(got_post, want_post)):
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                  f"resize+argmax kernel (fill {fill:g}): layer {li}'s "
+                  "posteriors differ from the plain version's")
+        for li, (a, b) in enumerate(zip(got_lbl, want_lbl)):
+            check(torch.equal(a, b), f"resize+argmax kernel (fill {fill:g}): "
+                  f"layer {li}'s labels differ from the plain version's")
+        print(f"phase 3d: resize+argmax kernel == plain at VGA stride 2, fill "
+              f"{fill:g}: both layers' posteriors and labels bit-equal "
+              f"({int((want_lbl[1] >= 0).sum())} of {h * w} pixels voted)")
+
+    launch, _, _ = resize_argmax_cuda.launcher(*args, -1000.0, h, w)
+    ms = time_launch(launch, 50)
+    wrapper_ms = time_cuda(
+        lambda: resize_argmax_cuda.posterior_maps(*args, -1000.0, h, w), 50)
+    plain_ms = time_cuda(lambda: posterior_maps_plain(*args, -1000.0, h, w), 20)
+
+    def device_events(fn, lead_cycles, reps=10):
+        """The device activities of ``reps`` calls of ``fn`` in a profiler
+        window, but for the spin kernel of ``lead_cycles`` card cycles queued
+        ahead of them, and the kernel's launch count over the same calls."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if lead_cycles:
+                torch.cuda._sleep(lead_cycles)
+            before = resize_argmax_cuda.launches.value
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        counted = resize_argmax_cuda.launches.value - before
+        return ([e for e in prof.events() if e.device_type.name != "CPU"
+                 and "spin" not in e.name.lower()], counted)
+
+    # Late in this process, a profiler window has lost the device records of
+    # its first launches (7 and 9 of 10 kernels, 1118 of 1120 plain
+    # activities recorded), though a window in a fresh process records them
+    # all. So the launches are queued behind ~5 ms of spin, clear of the
+    # window's start, and the kernel's activities must equal its count; the
+    # count without the spin is printed beside it.
+    lead = 10_000_000
+    plain, _ = device_events(
+        lambda: posterior_maps_plain(*args, -1000.0, h, w), lead)
+    plain_acts = len(plain) / 10
+    plain_dev_ms = sum(e.time_range.elapsed_us() for e in plain) / 1000 / 10
+    unled, unled_counted = device_events(launch, 0)
+    kernel, counted = device_events(launch, lead)
+    names = {e.name for e in kernel}
+    check(counted == 10 and len(kernel) == counted
+          and all("resize_argmax_kernel" in n for n in names),
+          f"resize+argmax launches: {len(kernel)} device activities "
+          f"{sorted(names)} for {counted} counted launches")
+    print(f"phase 3d: resize+argmax kernel in a profiler window: {len(kernel)} "
+          f"device activities for {counted} counted launches behind the spin, "
+          f"{len(unled)} for {unled_counted} without it")
+    kernel_dev_ms = (sum(e.time_range.elapsed_us() for e in kernel) / 1000
+                     / len(kernel))
+    # The bound: the class values of the stride posteriors that the kernel
+    # reads (not the rows' padding) and the mask read once, the
+    # full-resolution posteriors and the label planes written once; ~9 float
+    # operations a written value.
+    classes = sum(pipe.class_counts)
+    values = classes * h * w
+    grid = masks[0].numel()
+    nbytes = (4 * grid * classes + grid + 4 * values
+              + len(pipe.class_counts) * h * w)
+    bnd = bound(nbytes, {"fma": 9}, values)
+    print(f"phase 3d: resize+argmax kernel at VGA stride 2: device time alone "
+          f"{ms:.4f} ms ({kernel_dev_ms:.4f} ms in a profile); wrapper "
+          f"{wrapper_ms:.4f} ms; plain {plain_ms:.4f} ms, {plain_dev_ms:.4f} "
+          f"device ms in {plain_acts:g} activities; bound "
+          f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} ({nbytes} B), "
+          f"{bnd['bound_ms'] / ms:.1%} of it ({card})")
+    return dict(max_abs_err=0, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                plain_device_ms=plain_dev_ms, plain_activities=plain_acts,
+                profiled_ms=kernel_dev_ms, **bnd)
 
 
 def mean_field_phase(card: str, dev, frames, maps, calib, forest_np) -> dict:

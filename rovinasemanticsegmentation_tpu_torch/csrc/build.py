@@ -25,6 +25,7 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = (
     "patches.cu", "forest_descent.cu", "forest_descent_staged.cu",
     "patches_separable.cu", "normals.cu", "mean_field.cu", "lattice_build.cu",
+    "resize_argmax.cu",
 )
 HEADERS = ("async_copy.cuh",)  # included by the sources; part of the hash
 # No --use_fast_math: the patch kernel's floorf(77 / (2 d)) must be IEEE
@@ -75,6 +76,10 @@ _SIGNATURES = {
     # m, d1, alpha, norm, weight, n_iterations, qn, a, b, q, stream
     "rovina_mean_field": [_P, _I64, _I64, _I, _I, _I, _P, _I, *[_P] * 8, _I,
                           _I, _F, _P, _F, _I, _P, _P, _P, _P, _P],
+    # post, mask, gh, gw, rec, cmax, layers, classes, fill, h, w, scale_y,
+    # scale_x, outs, labels, stream
+    "rovina_resize_argmax": [_P, _P, _I, _I, _I, _I, _I, _P, _F, _I, _I, _F,
+                             _F, _P, _P, _P],
     # n, d, bytes (out)
     "rovina_lattice_build_scratch": [_I, _I, _P],
     # features, n, d, scale, m_bucket, scratch, sorted_points,

@@ -18,7 +18,9 @@ import torch
 def _tap_coords(
     dst_size: int, src_size: int, device
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Left tap, right tap and right-tap fraction (float32) for one axis."""
+    """Left tap, right tap and right-tap fraction (float32) for one axis.
+    ``csrc/resize_argmax.cu`` repeats this arithmetic, and the float path's
+    roundings below, bit for bit: change them together."""
     scale = torch.tensor(src_size / dst_size, dtype=torch.float32, device=device)
     fx = (torch.arange(dst_size, dtype=torch.float32, device=device) + 0.5) \
         * scale - 0.5

@@ -14,6 +14,9 @@ per-keyframe worker (``segmenter.cpp:323-443``):
 5. per-pixel argmax with a -1000 floor: -1 where nothing beats it
    (``test_multi.cpp:206-216``).
 
+Steps 3-5 are one kernel launch a frame on a CUDA device
+(``ops/resize_argmax_cuda.py``), their plain version on the CPU.
+
 A batch of frames runs the descent once over one buffer of packed feature
 rows (``[B*P, row_bytes]`` uint8, ``ops/feature_rows.py``): kernel A writes
 each frame's patch bytes into it and the descent reads it there.
@@ -36,6 +39,7 @@ from ..features.extractor import (
     to_device_image,
 )
 from ..models.forest import TorchForest, forest_from_numpy
+from ..ops import resize_argmax_cuda
 from ..ops.forest_cuda import forest_predict_rows
 from ..ops.resize import resize_bilinear
 from ..utils.calibration import Calibration
@@ -53,7 +57,29 @@ def posterior_maps(
     out_h: int,
     out_w: int,
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-    """Stride posteriors -> full-resolution maps and argmax labels per layer."""
+    """Stride posteriors -> full-resolution maps and argmax labels per layer.
+
+    A CUDA tensor goes through one kernel launch (``csrc/resize_argmax.cu``),
+    bit-equal to :func:`posterior_maps_plain`, which raises ``ValueError`` for
+    what the kernel does not take; a CPU tensor runs the plain version."""
+    if resize_argmax_cuda.engages(post):
+        return resize_argmax_cuda.posterior_maps(
+            post, mask, grid_shape, class_counts, fill_value, out_h, out_w)
+    return posterior_maps_plain(post, mask, grid_shape, class_counts,
+                                fill_value, out_h, out_w)
+
+
+def posterior_maps_plain(
+    post: torch.Tensor,
+    mask: torch.Tensor,
+    grid_shape: Tuple[int, int],
+    class_counts: Sequence[int],
+    fill_value: float,
+    out_h: int,
+    out_w: int,
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """:func:`posterior_maps` in PyTorch ops: the masked fill, the resize and
+    the floored argmax of each layer."""
     gh, gw = grid_shape
     posteriors, labels = [], []
     for li, c in enumerate(class_counts):

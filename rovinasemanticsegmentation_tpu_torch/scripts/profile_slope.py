@@ -24,6 +24,8 @@ per frame as the path does, and the descent once over the batch's rows:
   leaf-hist sum         a row of nulls: fused into the descent
   resize+argmax         ``SingleFramePipeline.results``: the bilinear
                         resize and the floored argmax of both layers
+                        (one launch a frame on the card,
+                        ``ops/resize_argmax_cuda.py``)
 
 Numbers are per keyframe (a call's over ``--batch``). Call i's input: the
 RGB XORed with i and depth + i where it is nonzero (``bench.py::perturb``;
