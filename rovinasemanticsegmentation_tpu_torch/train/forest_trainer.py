@@ -30,8 +30,9 @@ on the segment in the high word and the order-preserving float bits in the
 low word; per-segment class totals and offsets come from integer counts;
 the per-segment argmin is a ``scatter_reduce("amin")`` on the objective and
 then on the position where it is reached (the earliest, as JAX's segmented
-scan keeps). Counts are integer ``bincount``s, never float atomics, so a
-run on the card is deterministic.
+scan keeps), with the entries that cannot win spread over spare targets.
+Counts are integer ``bincount``s, never float atomics, so a run on the card
+is deterministic.
 
 One level loop (:func:`_grow`) grows a list of trees together, as JAX's
 ``grow_forest_device`` grows a forest in one dispatch: each level is one
@@ -66,10 +67,13 @@ import torch
 
 from ..device import resolve_device
 from ..models.forest import Forest, TreeArrays, build_forest
+from ..utils import profiling
 from ..utils.config import Config
 from . import random as jrandom
 
 log = logging.getLogger(__name__)
+train_levels = profiling.counter("train.levels")  # levels the loop stepped
+train_nodes = profiling.counter("train.nodes")  # nodes of the grown trees
 
 # Elements of one binned histogram chunk ([slots, F, C, B]); slots are
 # searched in chunks so that a wide frontier does not hold K such tensors.
@@ -77,6 +81,8 @@ _BINNED_CHUNK = 1 << 26
 # Elements of one exact search's class prefixes ([slots, C, Ns]): a forest's
 # level stream holds every tree's samples, so its slots go in chunks past it.
 _EXACT_CHUNK = 1 << 28
+# Spare drop targets of a count or a segment minimum (``_spare``).
+_SPARE = 1 << 12
 
 
 @dataclass
@@ -214,10 +220,20 @@ def _take(x: torch.Tensor, rows: Optional[torch.Tensor],
     return x[rows[:, None], cols]
 
 
+def _spare(n: int, first: int, device) -> torch.Tensor:
+    """Element ``i`` of ``n``'s own spare index, ``first + i % _SPARE``: the
+    target of an element whose count or minimum is dropped. One shared drop
+    target would take the atomic of every such element, most of a deep
+    level's stream, and cost the card time that varies with the data."""
+    return first + torch.arange(n, device=device) % _SPARE
+
+
 def _count(idx: torch.Tensor, size: int) -> torch.Tensor:
-    """Integer histogram of ``idx`` over ``[0, size)``; index ``size`` is the
-    drop bin for masked elements."""
-    return torch.bincount(idx.reshape(-1), minlength=size + 1)[:size]
+    """Integer histogram of ``idx`` over ``[0, size)``; index ``size`` marks
+    masked elements, which are counted in spare bins past it."""
+    flat = idx.reshape(-1)
+    flat = torch.where(flat < size, flat, _spare(flat.numel(), size, flat.device))
+    return torch.bincount(flat, minlength=size + _SPARE)[:size]
 
 
 def _float_order(vals: torch.Tensor) -> torch.Tensor:
@@ -286,12 +302,15 @@ def _split_search(
         valid, _pair_entropy(left, right, cw, wm, ns, 1), torch.inf)
     threshold = 0.5 * (prev_vals + sorted_vals)
 
-    best_obj = torch.full((k, f + 1), torch.inf, device=dev).scatter_reduce(
-        1, seg_c, objective, "amin")
+    # Entries that cannot move their segment's result (not valid; not the
+    # minimum) go to spare columns past the segments' (``_spare``).
+    spare = _spare(ns, f, dev)
+    best_obj = torch.full((k, f + _SPARE), torch.inf, device=dev).scatter_reduce(
+        1, torch.where(valid, seg_c, spare), objective, "amin")
     hit = valid & (objective == torch.gather(best_obj, 1, seg_c))
     pos = torch.where(hit, torch.arange(ns, device=dev), ns - 1)
-    best_pos = torch.full((k, f + 1), ns - 1, device=dev).scatter_reduce(
-        1, seg_c, pos, "amin")[:, :f]
+    best_pos = torch.full((k, f + _SPARE), ns - 1, device=dev).scatter_reduce(
+        1, torch.where(hit, seg_c, spare), pos, "amin")[:, :f]
     return (
         best_obj[:, :f],
         torch.gather(threshold, 1, best_pos),
@@ -584,7 +603,12 @@ def _grow(
     frontier empties leaves the loop (and its examples the level's stream);
     past ``max_depth`` no node splits (JAX's device loop stops there; its
     host loop runs one more level that splits nothing), and the last
-    frontier stays as leaf rows."""
+    frontier stays as leaf rows.
+
+    With tracing on, the loop is a ``train.grow`` span (``attrs``: trees,
+    rows) and each level a ``train.level`` span in it (``attrs``: level,
+    nodes of the frontier, samples); ``train.levels`` adds the levels and
+    ``train.nodes`` the grown trees' nodes."""
     dev = x.device
     num_trees = len(rows)
     num_bins = cfg.split_bins if xb is not None else 0
@@ -602,10 +626,14 @@ def _grow(
     levels: List[list] = [[] for _ in range(num_trees)]  # (sf, th, lc) slices
     nn, f_count = [1] * num_trees, [1] * num_trees
     live, depth = list(range(num_trees)), 0
+    grow = profiling.span("train.grow", attrs={"trees": num_trees, "rows": len(row)})
     while live and depth <= cfg.max_depth:
         fs = [f_count[t] for t in live]
         starts = np.cumsum([0] + fs[:-1])
         f = int(sum(fs))
+        level_span = profiling.span(
+            "train.level", parent=grow,
+            attrs={"level": depth, "nodes": f, "samples": len(row)})
         base = np.array([n - c for n, c in zip(nn, f_count)])
         shift = np.zeros(num_trees, np.int64)
         shift[live] = starts - base[live]
@@ -645,6 +673,10 @@ def _grow(
                                        for a in (row, lab, node_of, tree))
         live = kept
         depth += 1
+        level_span.end()
+        train_levels.add()
+    grow.end()
+    train_nodes.add(sum(nn))
 
     out = []
     for t in range(num_trees):
@@ -947,8 +979,9 @@ class ForestTrainer:
             draws = host_draws(rngs, num_layers, d, k, self.device)
         tables = _grow(data.x, data.labels_dev, rows, draws, weights, cfg, c_max,
                        xb=data.bins, boundaries=data.boundaries)
-        raws = _leaf_histograms_forest(data.x, data.labels_dev, data.freqs,
-                                       tables, c_max)
+        with profiling.span("train.refit"):
+            raws = _leaf_histograms_forest(data.x, data.labels_dev, data.freqs,
+                                           tables, c_max)
         trees = []
         for t, tab, raw in zip(tree_ids, tables, raws):
             sf, th, lc, dep = tab.numpy()
