@@ -142,6 +142,12 @@ or ALU) over that pipe's rate.
    ``load_forest`` with equal arrays; (f) a ``BoostedForestTrainer`` on a
    subsample, card equal to CPU (weights, trees, votes). Kernels A and B
    must launch; their launches here are the ``launches_training`` entries;
+   before (a), (g) (``split_search_phase``): the exact search's kernels
+   (``csrc/split_search.cu``) at ``train_recipe_12img``'s shapes, a shallow
+   and a deep level of its forest (K = 20 slots over a 3.47M stream)
+   captured from ``learn``: all four results bit-equal to the plain search,
+   one search a level, the kernels' time alone, ``_split_search``'s and the
+   plain search's, beside the bound;
 12. the JAX package's last public functions on the card against the CPU, at
    VGA (a recipe frame): ``normal_angles``, and ``normal_angles_grid`` at
    stride 2 with smoothing sizes 10 and 6.5 (masks equal, angles within
@@ -454,6 +460,7 @@ def run(card: str) -> dict:
     from rovinasemanticsegmentation_tpu_torch.ops import patches_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import patches_separable_cuda
     from rovinasemanticsegmentation_tpu_torch.ops import resize_argmax_cuda
+    from rovinasemanticsegmentation_tpu_torch.ops import split_search_cuda
     from rovinasemanticsegmentation_tpu_torch.ops.patches import (
         extract_patches_plain,
         extract_patches_separable_into_plain,
@@ -524,7 +531,7 @@ def run(card: str) -> dict:
                 forest_cuda.launches, forest_staged_cuda.launches,
                 patches_separable_cuda.launches, normals_cuda.launches,
                 mean_field_cuda.launches, lattice_cuda.launches,
-                resize_argmax_cuda.launches)
+                resize_argmax_cuda.launches, split_search_cuda.launches)
 
     def reset_counts():
         for counter in counters:
@@ -1409,6 +1416,7 @@ def run(card: str) -> dict:
           + f" ({card})")
 
     # ---- phase 11: forest training on the card
+    results["split_search"] = split_search_phase(card, dev)
     for name, k in training_phase(card, dev, reset_counts).items():
         results[name]["launches_training"] = k
 
@@ -1510,6 +1518,15 @@ def run(card: str) -> dict:
                 "replaces": None,  # XLA ops in the JAX package: no kernel
                 "library_ms": None,
                 **results["resize_argmax"],
+            },
+            {
+                "name": "split_search",
+                "route": "cuda",
+                "source": "rovinasemanticsegmentation_tpu_torch/csrc/"
+                          "split_search.cu",
+                "replaces": None,  # XLA ops in the JAX package: no kernel
+                "library_ms": None,
+                **results["split_search"],
             },
         ],
     }
@@ -1960,6 +1977,136 @@ def lattice_build_phase(card: str, dev, maps) -> dict:
                 bound_ms=bound_ms, bound_by="bytes")
 
 
+# Levels of train_recipe_12img's forest whose searches phase 11(g) times: a
+# shallow one (4 nodes a tree) and a deep one (the frontier near its widest).
+SPLIT_LEVELS = (2, 14)
+SPLIT_SEED = 3_000_000_019
+SPLIT_KERNELS = ("ss_stage", "ss_tile_counts", "ss_tile_scan", "ss_heads",
+                 "ss_search", "ss_finish")
+
+
+def split_search_phase(card: str, dev) -> dict:
+    """Phase 11(g): the exact split search's kernels at the benchmark's
+    training shapes: the levels of ``train_recipe_12img``'s forest (12 VGA
+    images x 6 variants at stride 5, 4 trees: K = 20 slots over a ~3.47M
+    stream), captured from ``learn`` on the card. At :data:`SPLIT_LEVELS`:
+    the kernels against the plain search on the same sorted stream, all
+    four results bit for bit, one count a search; the kernels' device time
+    alone (CUDA events, 20 searches), ``_split_search`` a call (the sort
+    and the kernels), the plain search after the same sort; each kernel's
+    time and the sort's in a profiler window; the bound by
+    ``utils/roofline.py``'s rule. -> the deep level's numbers, the shallow
+    one's under ``shallow``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from port_bench import harness
+    from port_bench.drivers import train as driver
+    from rovinasemanticsegmentation_tpu_torch.ops import split_search_cuda
+    from rovinasemanticsegmentation_tpu_torch.train import forest_trainer as T
+    from rovinasemanticsegmentation_tpu_torch.utils.profiling import counter
+    from rovinasemanticsegmentation_tpu_torch.utils.roofline import (
+        split_search_bound,
+    )
+
+    cell = driver.Cell(harness.load_spec("train_recipe_12img"), SPLIT_SEED,
+                       "cuda")
+    x, y, _ = cell.last
+    captured, shapes = {}, []
+    search = T._split_search
+
+    def capture(vals, seg, cls, cw, f, c, weighted=None):
+        level = len(shapes)
+        shapes.append((f, int((seg < f).sum())))
+        if level in SPLIT_LEVELS:
+            captured[level] = (vals.clone(), seg.clone(), cls.clone(), cw, f,
+                               c, weighted)
+        return search(vals, seg, cls, cw, f, c, weighted)
+
+    levels = counter("train.levels")
+    before = (levels.value, split_search_cuda.launches.value)
+    T._split_search = capture
+    try:
+        cell.learn(x, y)
+    finally:
+        T._split_search = search
+    torch.cuda.synchronize()
+    check(levels.value - before[0] == split_search_cuda.launches.value - before[1]
+          == len(shapes), "split search: not one kernel search a level")
+    print(f"phase 11(g): train_recipe_12img's forest ({len(x)} rows, seed "
+          f"{SPLIT_SEED}): {len(shapes)} levels, one search each; (frontier "
+          f"nodes, searched stream entries) a level: {shapes}")
+
+    def profiled(fn, reps=3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type.name != "CPU"]
+        per = {}
+        for e in device:
+            name = next((k for k in SPLIT_KERNELS if k in e.name),
+                        "sort" if "Sort" in e.name else None)
+            if name is not None:
+                per[name] = per.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+        return sum(e.time_range.elapsed_us() for e in device) / 1e3 / reps, per
+
+    out = {}
+    for level in SPLIT_LEVELS:
+        vals, seg, cls, cw, f, c, wm = captured[level]
+        k, ns = vals.shape
+        key = (seg << 32)[None, :] + T._float_order(vals)
+        sk, order = torch.sort(key, dim=1)
+        table = T._log2_table(ns, dev)
+        args = (sk, order, vals, seg, cls, cw, wm, f, c, table)
+        n0 = split_search_cuda.launches.value
+        got = split_search_cuda.search(*args)
+        want = T._split_search_plain(sk, order, vals, seg, cls, cw, f, c, wm)
+        torch.cuda.synchronize()
+        check(split_search_cuda.launches.value == n0 + 1,
+              "split search: a search was not counted once")
+        for name, g, w in zip(("objective", "threshold", "left mass",
+                               "right mass"), got, want):
+            check(torch.equal(g.view(torch.int32),
+                              w.to(torch.float32).view(torch.int32)),
+                  f"split search at level {level}: the kernels' {name} "
+                  "differs from the plain search's")
+        sseg = sk >> 32
+        sv = torch.gather(vals, 1, order)
+        pv = torch.cat([sv[:, :1], sv[:, :-1]], 1)
+        ps = torch.cat([torch.full_like(sseg[:, :1], -1), sseg[:, :-1]], 1)
+        active = int((sseg[0] < f).sum())
+        valid = int(((sseg < f) & (sseg == ps) & (sv - pv >= 1e-6)).sum())
+        # ~60 us of host a search (the allocations and 6 launches)
+        ms = time_launch(lambda: split_search_cuda.search(*args), 20,
+                         spin_cycles=400_000)
+        call_ms = time_cuda(lambda: T._split_search(vals, seg, cls, cw, f, c,
+                                                    wm), 10)
+        plain_ms = time_cuda(lambda: T._split_search_plain(
+            sk, order, vals, seg, cls, cw, f, c, wm), 3, warmup=1)
+        dev_ms, per = profiled(lambda: T._split_search(vals, seg, cls, cw, f,
+                                                       c, wm))
+        check(set(SPLIT_KERNELS) <= set(per),
+              f"split-search kernels in the profile: {sorted(per)}")
+        bnd = split_search_bound(k, ns, active, valid, f, c)
+        kernels = ", ".join(f"{n} {v:.4f}" for n, v in per.items())
+        print(f"phase 11(g): level {level} (K {k}, Ns {ns}, {f} frontier "
+              f"nodes, {active} searched entries, {valid} valid candidates, "
+              f"C {c}): kernels == plain search, all 4 results; device time "
+              f"alone {ms:.4f} ms a search; _split_search (sort + kernels) "
+              f"{call_ms:.4f} ms a call, {dev_ms:.4f} device ms in a profile "
+              f"({kernels} ms); plain after the sort {plain_ms:.4f} ms; bound "
+              f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+              f"({bnd['bound_bytes']} B), {bnd['bound_ms'] / ms:.2%} of it "
+              f"({card})")
+        res = dict(level=level, k=k, ns=ns, segments=f, active=active,
+                   valid=valid, ms=ms, wrapper_ms=call_ms, plain_ms=plain_ms,
+                   device_ms=dev_ms, per_kernel_ms=per, **bnd)
+        out = res if not out else dict(res, shallow=out)
+    return out
+
+
 def training_phase(card: str, dev, reset_counts) -> dict:
     """Phase 11: forest training on the card, the fixture forest's recipe
     (``scripts/make_bench_forest.py``). -> launches of kernels A (with its
@@ -1976,7 +2123,11 @@ def training_phase(card: str, dev, reset_counts) -> dict:
         load_forest,
         save_forest,
     )
-    from rovinasemanticsegmentation_tpu_torch.ops import forest_cuda, patches_cuda
+    from rovinasemanticsegmentation_tpu_torch.ops import (
+        forest_cuda,
+        patches_cuda,
+        split_search_cuda,
+    )
     from rovinasemanticsegmentation_tpu_torch.ops.patches import (
         extract_patches_plain,
     )
@@ -2158,7 +2309,8 @@ def training_phase(card: str, dev, reset_counts) -> dict:
           "boosted votes on the card differ from the CPU's")
     launches = {"pack_lab": patches_cuda.pack_launches.value,
                 "patches": patches_cuda.launches.value,
-                "forest_descent": forest_cuda.launches.value}
+                "forest_descent": forest_cuda.launches.value,
+                "split_search": split_search_cuda.launches.value}
     print(f"phase 11(f): boosting, 3 trees on {len(sub)} samples: {boost_s:.3f} s "
           f"on the card, weights {boosted.weights.tolist()}; card == CPU; "
           f"votes equal")

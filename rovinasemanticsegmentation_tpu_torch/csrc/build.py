@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(_DIR, "_build")
 SOURCES = (
     "patches.cu", "forest_descent.cu", "forest_descent_staged.cu",
     "patches_separable.cu", "normals.cu", "mean_field.cu", "lattice_build.cu",
-    "resize_argmax.cu",
+    "resize_argmax.cu", "split_search.cu",
 )
 HEADERS = ("async_copy.cuh",)  # included by the sources; part of the hash
 # No --use_fast_math: the patch kernel's floorf(77 / (2 d)) must be IEEE
@@ -80,6 +80,11 @@ _SIGNATURES = {
     # scale_x, outs, labels, stream
     "rovina_resize_argmax": [_P, _P, _I, _I, _I, _I, _I, _P, _F, _I, _I, _F,
                              _F, _P, _P, _P],
+    # k, ns, f, c, bytes (out)
+    "rovina_split_search_scratch": [_I, _I, _I, _I, _P],
+    # keys, order, vals, seg, cls, table, weights, weight_rows, weighted, k,
+    # ns, f, c, scratch, obj, thr, lm, rm, stream
+    "rovina_split_search": [*[_P] * 7, _I, _P, _I, _I, _I, _I, *[_P] * 6],
     # n, d, bytes (out)
     "rovina_lattice_build_scratch": [_I, _I, _P],
     # features, n, d, scale, m_bucket, scratch, sorted_points,

@@ -27,12 +27,15 @@ per-tree device seed come from the same numpy stream, in JAX's order.
 The idiom is the GPU's, not the TPU's. A level is one batched step over its
 K feature slots (``[K, Ns]``); the (segment, value) sort is one int64 sort
 on the segment in the high word and the order-preserving float bits in the
-low word; per-segment class totals and offsets come from integer counts;
-the per-segment argmin is a ``scatter_reduce("amin")`` on the objective and
-then on the position where it is reached (the earliest, as JAX's segmented
-scan keeps), with the entries that cannot win spread over spare targets.
-Counts are integer ``bincount``s, never float atomics, so a run on the card
-is deterministic.
+low word. After the sort, the card runs ``csrc/split_search.cu``: the
+class prefixes, both children's entropies and the per-segment minimum in one
+pass over the sorted stream, with one 64-bit ``atomicMin`` of (objective,
+position) a run of a segment. The plain search, the CPU's, takes per-segment
+class totals and offsets from integer counts and the per-segment argmin as
+a ``scatter_reduce("amin")`` on the objective and then on the position where
+it is reached (the earliest, as JAX's segmented scan keeps), with the
+entries that cannot win spread over spare targets. Counts are integers,
+never float atomics, so a run on the card is deterministic.
 
 One level loop (:func:`_grow`) grows a list of trees together, as JAX's
 ``grow_forest_device`` grows a forest in one dispatch: each level is one
@@ -67,6 +70,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.forest import Forest, TreeArrays, build_forest
+from ..ops import split_search_cuda
 from ..utils import profiling
 from ..utils.config import Config
 from . import random as jrandom
@@ -78,8 +82,9 @@ train_nodes = profiling.counter("train.nodes")  # nodes of the grown trees
 # Elements of one binned histogram chunk ([slots, F, C, B]); slots are
 # searched in chunks so that a wide frontier does not hold K such tensors.
 _BINNED_CHUNK = 1 << 26
-# Elements of one exact search's class prefixes ([slots, C, Ns]): a forest's
-# level stream holds every tree's samples, so its slots go in chunks past it.
+# Elements of one plain exact search's class prefixes ([slots, C, Ns]): a
+# forest's level stream holds every tree's samples, so its slots go in chunks
+# past it. The card's kernels hold no such tensor and take every slot at once.
 _EXACT_CHUNK = 1 << 28
 # Spare drop targets of a count or a segment minimum (``_spare``).
 _SPARE = 1 << 12
@@ -254,12 +259,36 @@ def _split_search(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Best split per (slot, segment): (objective, threshold, left mass,
     right mass), each [K, F]; objective = +inf where no split is valid, and
-    then the other three are read at the last sorted position, as JAX does."""
+    then the other three are read at the last sorted position, as JAX does.
+    The (segment, value) sort, then on a CUDA tensor ``csrc/split_search.cu``
+    (``ops/split_search_cuda.py``, which raises beyond its limits), elsewhere
+    :func:`_split_search_plain`. Both give the same bits."""
+    key = (seg << 32)[None, :] + _float_order(vals)
+    sorted_key, order = torch.sort(key, dim=1)
+    if vals.device.type == "cuda":
+        return split_search_cuda.search(
+            sorted_key, order, vals, seg, cls, class_weights, weighted,
+            num_segments, num_classes, _log2_table(vals.shape[1], vals.device))
+    return _split_search_plain(sorted_key, order, vals, seg, cls, class_weights,
+                               num_segments, num_classes, weighted)
+
+
+def _split_search_plain(
+    sorted_key: torch.Tensor,  # [K, Ns] int64 sorted (seg << 32) + value order
+    order: torch.Tensor,  # [K, Ns] int64 the sort's indices
+    vals: torch.Tensor,  # [K, Ns] float32
+    seg: torch.Tensor,  # [Ns] int64
+    cls: torch.Tensor,  # [Ns] int64
+    class_weights: Optional[torch.Tensor],  # [C] or [F, C], None = unweighted
+    num_segments: int,
+    num_classes: int,
+    weighted: Optional[torch.Tensor] = None,  # [F] bool (None = all)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_split_search` after the sort, in PyTorch ops over ``[K, C,
+    Ns]`` class prefixes."""
     f, c = num_segments, num_classes
     k, ns = vals.shape
     dev = vals.device
-    key = (seg << 32)[None, :] + _float_order(vals)
-    sorted_key, order = torch.sort(key, dim=1)
     sorted_seg = sorted_key >> 32
     sorted_vals = torch.gather(vals, 1, order)
     active = sorted_seg < f
@@ -350,11 +379,12 @@ def multi_slot_split_search(
     weighted: Optional[torch.Tensor] = None,  # [F] bool (None = all)
 ):
     """All K feature slots of one level as one batched ``[K, Ns]`` search
-    (the JAX code scans the slots one by one), in chunks of slots past
-    :data:`_EXACT_CHUNK`; each output is [K, F]."""
+    (the JAX code scans the slots one by one); off the card in chunks of
+    slots past :data:`_EXACT_CHUNK`. Each output is [K, F]."""
     seg_c = seg.clamp(max=num_segments - 1)
     vals = _take(x, rows, feats[seg_c]).T.contiguous()  # [K, Ns]
-    per = max(1, _EXACT_CHUNK // (num_classes * vals.shape[1]))
+    per = (vals.shape[0] if vals.device.type == "cuda"
+           else max(1, _EXACT_CHUNK // (num_classes * vals.shape[1])))
     parts = [_split_search(vals[s : s + per], seg_search, cls, class_weights,
                            num_segments, num_classes, weighted)
              for s in range(0, vals.shape[0], per)]

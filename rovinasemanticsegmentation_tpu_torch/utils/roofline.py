@@ -104,3 +104,17 @@ def resample_bound(image_bytes, depth_grid, patch_bytes, row_bytes) -> dict:
     valid = int((depth_grid > 0).sum())
     nbytes = image_bytes + 4 * points + row_bytes * points
     return bound(nbytes, RESAMPLE_OPS, patch_bytes * valid)
+
+
+def split_search_bound(k: int, ns: int, active: int, valid: int, f: int,
+                       c: int) -> dict:
+    """The exact split search after the sort (``csrc/split_search.cu``) over
+    ``k`` slots of ``ns`` positions, ``active`` of them on the searched
+    frontier, ``valid`` (slot, position) candidates, ``f`` segments, ``c``
+    classes: each slot's sorted keys and order read once over the active
+    positions (8 B each), the unsorted segments and classes once (8 B each),
+    the four [K, F] float32 results written; the entropies' float work at
+    the valid candidates on the FMA pipe (each class's two terms, a multiply
+    and an add each; both masses' terms and the children's sum)."""
+    nbytes = 16 * k * active + 16 * ns + 16 * k * f
+    return bound(nbytes, {"fma": 4 * c + 5}, valid)
